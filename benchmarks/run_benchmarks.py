@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Reproduce the reference README's performance table on TPU.
+"""Reproduce the reference README's performance table on the GPU.
 
 Reference numbers (RTX 4050 Laptop GPU, CUDA-event kernel timing,
 /root/reference/README.md:229-253) vs this framework's device times,
@@ -9,12 +9,9 @@ Usage:
     python benchmarks/run_benchmarks.py [--out results.json] [--merge]
 
 --merge folds this run into an existing results file by keeping each row's
-MINIMUM time across runs.  Rationale: the shared chip's effective speed
-drifts up to 2.7x between sessions under neighbor-tenant contention
-(CLAUDE.md measurement discipline), and a single run can land entirely
-inside a congested window; the min across sessions is the least-contended
-window, matching the reference's idle-GPU CUDA-event conditions (bench.py
-already takes the min across rounds within one run for the same reason).
+MINIMUM time across runs: the least-contended window, matching the
+reference's idle-GPU CUDA-event conditions (bench.py takes the min across
+rounds within one run for the same reason).
 Only rows measuring the same implementation may merge -- bump _IMPL_REV
 whenever a timed code path changes so stale minima are discarded; rows
 additionally persist the lowered-program fingerprint, and a stored row
@@ -51,22 +48,16 @@ _IMPL_REV = 2
 # A row's rev is _IMPL_REV unless overridden here; rows whose stored rev
 # differs from the current rev never merge.  History:
 # ("sobel", 1) rev 3 = input-replicated phase-0 gray (1.38x, 2026-08-17).
-# ("gaussian", 4) rev 3 = MXU G=128 blocks + threshold r>=3 (the L4 r=3 row
-#   now times the MXU tier instead of the folded VPU kernel, 2026-08-18).
+# ("gaussian", 4) rev 3 = an earlier L4 kernel.
 _ROW_REV_OVERRIDES = {("sobel", 1): 3,
-                      # rev 4 (2026-08-21, round 5): every L2/L4 row now
-                      # times THE SERVED rows-tier program via dispatch's
-                      # own trace builders -- host-prepad included (the
-                      # in-program pad deleted; 0.75-0.83x measured,
-                      # scripts/exp_host_prepad.py run 4).  The previous
-                      # planar-fused-kernel timings measured different
-                      # programs, so their minima must not pool.
+                      # rev 4: every L2/L4 row times THE SERVED rows
+                      # program via dispatch's own rows_fn.
                       ("gaussian", 2): 4, ("box", 2): 4, ("sobel", 2): 4,
                       ("gaussian", 4): 4, ("box", 4): 4, ("sobel", 4): 4}
 
 # Same, for the extended cases (keyed by case label).  History:
-# r15 MXU rev 3 = G=128 blocks (0.76 -> ~0.47 ms, 2026-08-18).
-_EXT_REV_OVERRIDES = {"gaussian r15 L4 (MXU, maxdiff<=1)": 3}
+# r15 L4 rev 3 = an earlier L4 kernel.
+_EXT_REV_OVERRIDES = {"gaussian r15 L4 (maxdiff<=1)": 3}
 
 
 def _ext_rev(case: str) -> int:
@@ -135,10 +126,9 @@ def _pool_identical_programs(rows, img) -> None:
     """Share same-session samples across rows that lowered to the
     byte-identical device program (bench.program_fingerprint): any sample
     of one is a valid sample of the other, so each takes the group min.
-    Concretely this covers box L2 vs L4 at the bench radius (the
-    doubling-window sum path ignores `folded`), where independent per-row
-    minima otherwise drift apart on the shared chip and publish the
-    relaxed tier as slower than the exact tier it is the same program as.
+    Concretely this covers box L2 vs L4 (the same kernel), where
+    independent per-row minima otherwise drift apart between sessions and
+    publish one tier as slower than the identical program of the other.
 
     Side effect: stores each row's `fingerprint`, which _merge_rows then
     uses to gate historical merging on checked program identity."""
@@ -218,9 +208,8 @@ def main() -> int:
 
     import numpy as np
 
-    from gpu_image_processing_tpu.runtime.device import default_device, warmup_transfers
+    from gpu_image_processing.runtime.device import default_device
 
-    warmup_transfers()
     rng = np.random.default_rng(12345)
     img = rng.integers(0, 256, size=(bench.H, bench.W, bench.C), dtype=np.uint8)
 
@@ -243,33 +232,29 @@ def main() -> int:
 
     _pool_identical_programs(rows, img)
 
-    # Extended (beyond the reference's table): large-radius gaussian, where
-    # the ADVANCED tier routes to the MXU banded-matmul kernel
-    # (ops/pallas/blur_mxu.py).  No reference number exists (the reference
-    # only published radius-3); L2 at the same radius is the comparison.
-    from gpu_image_processing_tpu.ops.weights import gaussian_kernel_f32
-    from gpu_image_processing_tpu.runtime.timing import device_time_ms
+    # Extended (beyond the reference's table): large-radius gaussian.  No
+    # reference number exists (the reference only published radius-3).
+    from gpu_image_processing.ops.weights import gaussian_kernel_f32
+    from gpu_image_processing.runtime.timing import device_time_ms
 
-    l2impls: dict = {}
-    from gpu_image_processing_tpu.ops import fused
-
-    fused.register_all(lambda k, v: l2impls.__setitem__(k, v))
     import jax
+
+    from gpu_image_processing.ops.pallas.api import level2_impls, level4_impls
 
     w15 = jax.device_put(gaussian_kernel_f32(15, 4.0), default_device())
     img_dev = jax.device_put(img, default_device())
     ext_arms = [
-        ("gaussian r15 L2 (VPU, bit-exact)",
-         lambda x, w: l2impls["gaussian"](x, w, 15)),
-        ("gaussian r15 L4 (MXU, maxdiff<=1)",
-         lambda x, w: l2impls["gaussian_adv"](x, w, 15)),
+        ("gaussian r15 L2 (bit-exact)",
+         lambda x, w: level2_impls(False)["gaussian"](x, w, 15)),
+        ("gaussian r15 L4 (maxdiff<=1)",
+         lambda x, w: level4_impls(False)["gaussian"](x, w, 15)),
     ]
 
     # Serving-scale batch path (beyond the reference: it processes one
     # image per request).  Batch of 4 README images through the natively
     # batched rows kernel; reported per image.
-    from gpu_image_processing_tpu.ops.pallas.blur import gaussian_pallas_rows_batch
-    from gpu_image_processing_tpu.ops.weights import gaussian_kernel_f32 as _gk
+    from gpu_image_processing.ops.pallas.blur import gaussian_rows
+    from gpu_image_processing.ops.weights import gaussian_kernel_f32 as _gk
 
     def rows_batch_operands(h_, w_, batch):
         return jax.device_put(
@@ -278,17 +263,15 @@ def main() -> int:
 
     def rows_batch_ms(rows_in, w_dev, iters=16):
         return device_time_ms(
-            lambda x, w: gaussian_pallas_rows_batch(x, w, 3, bench.C),
+            lambda x, w: gaussian_rows(x, w, 3, bench.C),
             [rows_in, w_dev], iters=iters)
 
     BATCH = 4
     rows_b = rows_batch_operands(bench.H, bench.W, BATCH)
     w3 = jax.device_put(_gk(3, 2.0), default_device())
     batch_samples: list[float] = []
-    # Arms interleaved WITHIN rounds (CLAUDE.md measurement discipline:
-    # the shared chip drifts up to 2.7x between rounds, so sequential
-    # per-arm measurement would corrupt exactly the L2-vs-L4 comparison
-    # this section exists to publish).
+    # Arms interleaved WITHIN rounds: drift between rounds then falls on
+    # every arm alike, which the L2-vs-L4 comparison needs.
     ext_samples: dict[str, list] = {label: [] for label, _ in ext_arms}
     for _ in range(3):
         for label, impl in ext_arms:
@@ -318,8 +301,8 @@ def main() -> int:
     # The reference's only other published number: its example /api/process
     # response (/root/reference/README.md:204-215) -- gaussian L2 on
     # 1024x1023 RGB: 0.293 ms / 3415.67 fps.  Measured single-image and
-    # batch-16 (small images underfill the chip alone; batch rides the
-    # Pallas grid dim, so throughput is the serving-relevant number).
+    # batch-16 (small images underfill the card alone; the batch rides the
+    # kernel's grid, so throughput is the serving-relevant number).
     REF_EX_MS, REF_EX_FPS = 0.293, 3415.67
     img_small = rng.integers(0, 256, size=(1023, 1024, 3), dtype=np.uint8)
     ms_small = bench.measure_ms("gaussian", 2, img_small)

@@ -15,7 +15,7 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 import jax
 import numpy as np
 
-from gpu_image_processing_tpu.models import BoxBlur, GaussianBlur, SobelEdgeDetection
+from gpu_image_processing.models import BoxBlur, GaussianBlur, SobelEdgeDetection
 
 
 def main() -> None:

@@ -1,9 +1,9 @@
 #!/usr/bin/env python3
 """Deep-profile a filter and print the per-kernel duration rows.
 
-On TPU the rows come from an xplane trace of the ACTUAL served executable
-(duration_source=xplane_trace); elsewhere the chain falls back to the
-isolated-pass estimate or plain device timing -- the tag says which.
+On a GPU the rows come from an xplane trace of the ACTUAL served executable
+(duration_source=xplane_trace); on the CPU backend the chain falls back to
+the isolated-pass estimate or plain device timing -- the tag says which.
 
     python examples/profile_kernels.py [gaussian|box|sobel]
 """
@@ -15,11 +15,11 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 import numpy as np
 
-from gpu_image_processing_tpu.profiling.profiler import (
+from gpu_image_processing.profiling.profiler import (
     get_common_metrics,
     profile_filter,
 )
-from gpu_image_processing_tpu.runtime.device import warmup_transfers
+from gpu_image_processing.runtime.device import warmup_transfers
 
 
 def main() -> int:

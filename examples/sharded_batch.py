@@ -1,10 +1,11 @@
 #!/usr/bin/env python3
-"""Example: multi-chip filtering over a jax.sharding.Mesh.
+"""Example: multi-device filtering over a jax.sharding.Mesh.
 
-Runs on any device count -- on a single-chip or CPU host, set
-XLA_FLAGS=--xla_force_host_platform_device_count=8 GIP_TPU_PLATFORM=cpu to
-simulate an 8-chip mesh.  The batch is sharded over the `dp` axis and image
-rows over `sp`; the vertical-pass halos move over ICI via ppermute.
+Needs at least two devices -- on a single-GPU or CPU host, set
+XLA_FLAGS=--xla_force_host_platform_device_count=8 JAX_PLATFORMS=cpu to
+simulate an 8-device mesh.  The batch is sharded over the `dp` axis and
+image rows over `sp`; the vertical-pass halo rows move between devices
+through a ppermute collective.
 """
 
 import os
@@ -15,18 +16,13 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 import jax
 import numpy as np
 
-from gpu_image_processing_tpu.ops.weights import gaussian_kernel_f32
-from gpu_image_processing_tpu.parallel.mesh import make_mesh
-from gpu_image_processing_tpu.parallel.spatial import make_sharded_filter
+from gpu_image_processing.ops.weights import gaussian_kernel_f32
+from gpu_image_processing.parallel.mesh import make_mesh
+from gpu_image_processing.parallel.spatial import make_sharded_filter
 
 
 def main() -> None:
     n = len(jax.devices())
-    if n < 2:
-        try:
-            n = len(jax.devices("cpu"))
-        except RuntimeError:
-            pass
     mesh = make_mesh(min(n, 8))
     dp, sp = mesh.devices.shape
     print(f"mesh: dp={dp} x sp={sp} over {mesh.devices.size} devices")

@@ -18,7 +18,7 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 import numpy as np
 
-from gpu_image_processing_tpu.utils.image import (decode_file_16,
+from gpu_image_processing.utils.image import (decode_file_16,
                                                   decode_file_float)
 
 

@@ -1,4 +1,4 @@
-/* TPU Image Processing frontend.
+/* GPU Image Processing frontend.
  *
  * Talks to the REST API (server/app.py) with the same JSON contract as the
  * reference stack; charts are drawn directly on <canvas> (no CDN deps).
@@ -59,7 +59,7 @@ async function checkHealth() {
     }
     const body = await r.json();
     const ok = body.status === "healthy" && body.gpu_available;
-    el.textContent = ok ? "backend: TPU ready" : "backend: accelerator unavailable";
+    el.textContent = ok ? "backend: GPU ready" : "backend: accelerator unavailable";
     el.className = `health ${ok ? "ok" : "bad"}`;
   } catch {
     el.textContent = "backend: offline";

@@ -2,7 +2,7 @@
 //
 // The reference vendors stb_image/stb_image_write (~15k LoC C) for its C++
 // test programs (external/stb_image.h, used by tests/test_real_image.cu:7-11)
-// and leans on PIL inside the server.  This library is the TPU stack's
+// and leans on PIL inside the server.  This library is this stack's
 // native equivalent: PNG encode/decode (zlib), PPM/PGM and BMP io, and fast
 // base64 -- the byte-level work that sits between HTTP and the device and
 // should not burn Python time on a serving host.

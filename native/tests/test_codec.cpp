@@ -51,7 +51,7 @@ static std::vector<uint8_t> make_image(int h, int w, int c) {
 int main() {
   // base64 roundtrip
   {
-    const char* msg = "TPU image processing native codec";
+    const char* msg = "GPU image processing native codec";
     size_t n = std::strlen(msg);
     std::vector<char> enc(gip_base64_encoded_size(n) + 1);
     size_t elen = gip_base64_encode((const uint8_t*)msg, n, enc.data());

@@ -23,11 +23,11 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 import numpy as np  # noqa: E402
 
-from gpu_image_processing_tpu.core import config  # noqa: E402
+from gpu_image_processing.core import config  # noqa: E402
 
 
 def load_image(path: str) -> np.ndarray:
-    from gpu_image_processing_tpu.utils import native_codec
+    from gpu_image_processing.utils import native_codec
 
     ext = os.path.splitext(path)[1].lower()
     if ext in (".ppm", ".pgm", ".tga") and native_codec.available():
@@ -61,7 +61,7 @@ def load_image(path: str) -> np.ndarray:
         with open(path, "rb") as fh:
             head = fh.read(16)
         if head[:2] == b"#?" or head[:4] == b"\x53\x80\xf6\x34":
-            from gpu_image_processing_tpu.utils.image import load_image_file
+            from gpu_image_processing.utils.image import load_image_file
 
             with open(path, "rb") as fh:
                 arr, _, _ = load_image_file(fh.read())
@@ -85,7 +85,7 @@ def load_image(path: str) -> np.ndarray:
 
 
 def save_image(path: str, arr: np.ndarray) -> None:
-    from gpu_image_processing_tpu.utils import native_codec
+    from gpu_image_processing.utils import native_codec
 
     ext = os.path.splitext(path)[1].lower()
     lib = native_codec.load()
@@ -158,7 +158,7 @@ def load_frames(path: str):
     """(N, H, W, 3) frames + per-frame delays (ms): native tier first
     (utils/native_codec.py::gif_frames, the stbi_load_gif_from_memory
     analog — stb_image.h:433), PIL fallback otherwise."""
-    from gpu_image_processing_tpu.utils import native_codec
+    from gpu_image_processing.utils import native_codec
 
     with open(path, "rb") as fh:
         data = fh.read()
@@ -246,7 +246,7 @@ def main() -> int:
         return run_frames(args)
 
     if args.load != "ldr":
-        from gpu_image_processing_tpu.utils.image import (decode_file_16,
+        from gpu_image_processing.utils.image import (decode_file_16,
                                                           decode_file_float)
 
         with open(args.input, "rb") as f:

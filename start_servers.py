@@ -5,8 +5,8 @@ servers attached with signal-based cleanup -- unlike start_servers.sh /
 scripts/serve.py `start`, which detach and manage PID files).
 
 The backend child is the scripts/serve.py SUPERVISOR, not the raw app:
-worker recycling (the relay client's per-transfer host-memory leak,
-CLAUDE.md) must keep working in foreground mode too.
+opt-in worker recycling (GIP_MAX_RSS_MB) must keep working in foreground
+mode too.
 """
 
 from __future__ import annotations
@@ -51,9 +51,8 @@ def main() -> int:
             try:
                 proc.wait(timeout=10)
             except subprocess.TimeoutExpired:
-                # Never SIGKILL the backend tree: a killed TPU client
-                # orphans the device lease (CLAUDE.md).  Leave it to finish
-                # its graceful exit instead.
+                # Never SIGKILL the backend tree: leave it to finish its
+                # graceful drain instead.
                 print(f"  {proc.pid} still draining; leaving it to exit")
         print("Servers stopped.")
         sys.exit(rc)

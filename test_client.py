@@ -5,7 +5,7 @@ The analog of the reference's backend/test_client.py:202-258 -- six
 end-to-end tests against http://localhost:8000, saving returned images and
 printing a PASS/FAIL summary with a matching exit code.
 
-Usage: python test_client.py [--base http://localhost:8000] [--outdir /tmp]
+Usage: python test_client.py [--base http://localhost:8000] [--outdir DIR]
 """
 
 from __future__ import annotations
@@ -16,6 +16,7 @@ import io
 import json
 import os
 import sys
+import tempfile
 import urllib.request
 
 import numpy as np
@@ -69,7 +70,9 @@ def save_png(data_url: str, path: str) -> None:
 def main() -> int:
     parser = argparse.ArgumentParser()
     parser.add_argument("--base", default="http://localhost:8000")
-    parser.add_argument("--outdir", default="/tmp/gip_tpu_client_test")
+    parser.add_argument(
+        "--outdir",
+        default=os.path.join(tempfile.gettempdir(), "gip_client_test"))
     args = parser.parse_args()
     os.makedirs(args.outdir, exist_ok=True)
     base = args.base.rstrip("/")
@@ -146,7 +149,7 @@ def main() -> int:
     except Exception as exc:
         record("process-all L1 vs L2", False, str(exc))
 
-    # 7. batch endpoint (TPU extension)
+    # 7. batch endpoint (an extension)
     try:
         status, body = http_json(f"{base}/api/process-batch", {
             "images": [image_b64, image_b64], "filter": "box", "level": 2,

@@ -159,12 +159,12 @@ const body = {
         kernel_duration_source: "isolated_pass_estimate",
         ncu_data: {
           memory: { "HLO Bytes Accessed": 123456, "Exotic Counter": 7 },
-          config: { Platform: "TPU" },
+          config: { Platform: "gpu" },
         },
       },
     },
     level_2: {
-      info: { level: "TPU Optimized", level_number: 2 },
+      info: { level: "GPU Optimized", level_number: 2 },
       processed_image: "data:image/png;base64,zzzz",
       metrics: { time_ms: 0.5, bandwidth_gbps: 30.0, fps: 2000.0 },
     },

@@ -73,29 +73,32 @@ def grayscale(img_u8: np.ndarray) -> np.ndarray:
 
 
 def sobel(img_u8: np.ndarray, level: int) -> np.ndarray:
+    """Whole-array numpy form of the per-pixel loop: every f32 operation is
+    elementwise, in the reference's tap order, so each pixel sees exactly
+    the scalar kernel's operation sequence."""
     height, width, channels = img_u8.shape
     gray = grayscale(img_u8)
     if level == 2:
         gray = np.floor(gray + F32(0.5)).clip(0, 255).astype(np.uint8).astype(F32)
     out = np.zeros((height, width), dtype=np.uint8)
-    for y in range(1, height - 1):
-        for x in range(1, width - 1):
-            gx = F32(0.0)
-            gy = F32(0.0)
-            # tap order: rows top->bottom, cols left->right (zero taps skipped)
-            gx = gx + F32(-1.0) * gray[y - 1, x - 1]
-            gx = gx + F32(1.0) * gray[y - 1, x + 1]
-            gx = gx + F32(-2.0) * gray[y, x - 1]
-            gx = gx + F32(2.0) * gray[y, x + 1]
-            gx = gx + F32(-1.0) * gray[y + 1, x - 1]
-            gx = gx + F32(1.0) * gray[y + 1, x + 1]
-            gy = gy + F32(-1.0) * gray[y - 1, x - 1]
-            gy = gy + F32(-2.0) * gray[y - 1, x]
-            gy = gy + F32(-1.0) * gray[y - 1, x + 1]
-            gy = gy + F32(1.0) * gray[y + 1, x - 1]
-            gy = gy + F32(2.0) * gray[y + 1, x]
-            gy = gy + F32(1.0) * gray[y + 1, x + 1]
-            mag = np.sqrt(gx * gx + gy * gy, dtype=F32)
-            mag = min(mag, F32(255.0))
-            out[y, x] = np.uint8(np.floor(mag + F32(0.5)))
+    if height >= 3 and width >= 3:
+        def g(dy: int, dx: int) -> np.ndarray:
+            return gray[1 + dy:height - 1 + dy, 1 + dx:width - 1 + dx]
+
+        zero = np.zeros((height - 2, width - 2), F32)
+        # tap order: rows top->bottom, cols left->right (zero taps skipped)
+        gx = zero + F32(-1.0) * g(-1, -1)
+        gx = gx + F32(1.0) * g(-1, 1)
+        gx = gx + F32(-2.0) * g(0, -1)
+        gx = gx + F32(2.0) * g(0, 1)
+        gx = gx + F32(-1.0) * g(1, -1)
+        gx = gx + F32(1.0) * g(1, 1)
+        gy = zero + F32(-1.0) * g(-1, -1)
+        gy = gy + F32(-2.0) * g(-1, 0)
+        gy = gy + F32(-1.0) * g(-1, 1)
+        gy = gy + F32(1.0) * g(1, -1)
+        gy = gy + F32(2.0) * g(1, 0)
+        gy = gy + F32(1.0) * g(1, 1)
+        mag = np.minimum(np.sqrt(gx * gx + gy * gy, dtype=F32), F32(255.0))
+        out[1:-1, 1:-1] = np.floor(mag + F32(0.5)).astype(np.uint8)
     return np.repeat(out[:, :, None], channels, axis=2)

@@ -1,7 +1,7 @@
 """Comparison helper for Sobel outputs vs the numpy oracle.
 
 The Rec.601 gray conversion `0.299f*R + 0.587f*G + 0.114f*B` is contracted
-to FMAs by XLA (CPU and TPU) -- and by nvcc in the CUDA reference -- while
+to FMAs by XLA (CPU and GPU) -- and by nvcc in the CUDA reference -- while
 the numpy oracle rounds after every multiply.  A gray value landing exactly
 on k+0.5 can therefore round to k or k+1 depending on contraction, shifting
 a 3x3 gradient by up to +-4 and the magnitude by up to ~6.  Grayscale inputs

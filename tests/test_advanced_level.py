@@ -8,7 +8,7 @@ import numpy as np
 import pytest
 
 import gpu_filters
-from gpu_image_processing_tpu.runtime.dispatch import RUNTIME
+from gpu_image_processing.runtime.dispatch import RUNTIME
 
 from . import oracle_numpy as oracle
 from .conftest import make_image
@@ -50,37 +50,11 @@ def test_level5_still_rejected(rng):
 
 
 @pytest.mark.parametrize("shape", [(24, 31, 3), (19, 23, 1), (17, 29, 4)])
-def test_gaussian_advanced_mxu_radius_within_gate(rng, shape):
-    """radius >= GAUSS_MXU_MIN_RADIUS routes the ADVANCED gaussian to the
-    MXU banded-matmul kernel (blur_mxu.py); the <=1 gate must hold."""
-    from gpu_image_processing_tpu.ops.pallas.blur_mxu import (
-        GAUSS_MXU_MIN_RADIUS,
-    )
-
+def test_gaussian_advanced_large_radius_within_gate(rng, shape):
+    """Large radii up to the weight-table cap (MAX_KERNEL_TAPS=64,
+    reference image_filters.cu:729-732) hold the <=1 gate at level 4."""
     img = make_image(rng, *shape)
-    # 31 is the weight-table cap (MAX_KERNEL_TAPS=64, reference
-    # image_filters.cu:729-732) -- the largest halo the MXU band sees.
-    for radius in (GAUSS_MXU_MIN_RADIUS, 15, 31):
+    for radius in (8, 15, 31):
         l2, _ = RUNTIME.gaussian_blur(img, sigma=3.0, radius=radius, level=2)
         l4, _ = RUNTIME.gaussian_blur(img, sigma=3.0, radius=radius, level=4)
         assert np.abs(l2.astype(int) - l4.astype(int)).max() <= 1
-
-
-def test_advanced_mxu_routing(rng):
-    """The serving trace for L4 gaussian uses the MXU kernel at large radii
-    and the folded VPU kernel below the crossover."""
-    from gpu_image_processing_tpu.ops.pallas.blur_mxu import (
-        GAUSS_MXU_MIN_RADIUS,
-    )
-    from gpu_image_processing_tpu.runtime.dispatch import _rows_optimized
-
-    def names(fn):
-        return fn.__code__.co_names + tuple(
-            c.cell_contents.__name__ for c in (fn.__closure__ or ())
-            if callable(getattr(c, "cell_contents", None))
-            and hasattr(c.cell_contents, "__name__"))
-
-    hot = _rows_optimized("gaussian", 4, GAUSS_MXU_MIN_RADIUS, 64, 96, 3)
-    assert "gaussian_mxu_rows" in names(hot)
-    cold = _rows_optimized("gaussian", 4, GAUSS_MXU_MIN_RADIUS - 1, 64, 96, 3)
-    assert "gaussian_mxu_rows" not in names(cold)

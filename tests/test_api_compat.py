@@ -5,8 +5,8 @@ import numpy as np
 import pytest
 
 import gpu_filters
-from gpu_image_processing_tpu.core.params import ValidationError
-from gpu_image_processing_tpu.core import params
+from gpu_image_processing.core.params import ValidationError
+from gpu_image_processing.core import params
 
 
 def test_constants():

@@ -57,7 +57,7 @@ def test_rev_mismatch_discards_stale_minimum(rb):
 def test_missing_rev_in_previous_file_defaults_to_global(rb):
     """Entries written before per-row revs carry the file's global
     impl_rev implicitly; they merge with same-rev rows only."""
-    label = "gaussian r15 L4 (MXU, maxdiff<=1)"
+    label = "gaussian r15 L4 (maxdiff<=1)"
     # extended case with a bumped rev: old rev-less entry must not merge
     ext = [{"case": label, "rev": rb._ext_rev(label), "time_ms": 0.47}]
     prev = [{"case": label, "time_ms": 0.30}]
@@ -223,9 +223,8 @@ def test_finalize_dispersion_defaults(rb):
 
 
 def test_box_l2_l4_fingerprints_match_at_bench_radius():
-    """The concrete pooling case: box L2 and L4 trace identically at the
-    bench radius (the doubling-window path ignores `folded`), gaussian
-    L2 vs L4 do not (folded taps are a real numeric relaxation)."""
+    """The concrete pooling case: the blurs' L2 and L4 trace identically
+    (one kernel serves both), Sobel's do not (level 2 quantizes gray)."""
     import numpy as np
 
     import bench
@@ -233,32 +232,32 @@ def test_box_l2_l4_fingerprints_match_at_bench_radius():
     img = np.zeros((40, 48, 3), np.uint8)
     assert bench.program_fingerprint("box", 2, img) == \
         bench.program_fingerprint("box", 4, img)
-    assert bench.program_fingerprint("gaussian", 2, img) != \
+    assert bench.program_fingerprint("gaussian", 2, img) == \
         bench.program_fingerprint("gaussian", 4, img)
+    assert bench.program_fingerprint("sobel", 2, img) != \
+        bench.program_fingerprint("sobel", 4, img)
 
 
-def test_fingerprint_trace_deterministic_and_tpu_path(monkeypatch):
-    """The r2 text-hash fingerprint was per-trace nondeterministic under
-    the Mosaic lowering (every Pallas-tier row re-hashed differently on
-    the v5e, so pooling silently never fired on silicon -- caught by the
-    tpu_validation identity check 2026-08-19).  The jaxpr fingerprint
-    must be (a) identical across repeated traces in one process and
-    (b) box-L2==L4 on the REAL TPU path too (interpret=False), which
-    jaxpr tracing lets us prove without hardware."""
+def test_fingerprint_trace_deterministic_and_gpu_path(monkeypatch):
+    """The jaxpr fingerprint must be (a) identical across repeated traces
+    in one process and (b) box-L2==L4 on the compiled GPU path too
+    (interpret=False), which jaxpr tracing proves without a card."""
     import numpy as np
 
     import bench
-    from gpu_image_processing_tpu.ops.pallas import api as pallas_api
+    from gpu_image_processing.runtime import dispatch
 
     img = np.zeros((40, 48, 3), np.uint8)
     assert bench.program_fingerprint("box", 2, img) == \
         bench.program_fingerprint("box", 2, img)
 
-    # Force the registry onto the interpret=False kernels (what silicon
-    # serves); tracing them needs no TPU, only executing them would.
-    monkeypatch.setattr(pallas_api, "is_tpu", lambda: True)
+    # Trace the interpret=False kernels (what the GPU serves); tracing them
+    # needs no GPU, only executing them would.
+    monkeypatch.setattr(dispatch, "use_interpret", lambda: False)
     assert bench.program_fingerprint("box", 2, img) == \
         bench.program_fingerprint("box", 4, img)
+    assert bench.program_fingerprint("sobel", 2, img) != \
+        bench.program_fingerprint("sobel", 4, img)
 
 
 def test_post_merge_pooling_shares_historical_min(rb, monkeypatch):

@@ -4,10 +4,11 @@ the true border read the edge pixel, which is exactly what every replicated
 pad pixel holds; Sobel's true border is re-zeroed post-crop)."""
 
 import numpy as np
+import pytest
 
-from gpu_image_processing_tpu.ops.weights import gaussian_kernel_f32
-from gpu_image_processing_tpu.runtime import dispatch
-from gpu_image_processing_tpu.runtime.dispatch import (RUNTIME, _bucket,
+from gpu_image_processing.ops.weights import gaussian_kernel_f32
+from gpu_image_processing.runtime import dispatch
+from gpu_image_processing.runtime.dispatch import (RUNTIME, _bucket,
                                                        executable_cache_key)
 
 from . import oracle_numpy as oracle
@@ -62,7 +63,7 @@ def test_box_batch_bucketed_exact(rng):
 
 
 def test_bucketing_opt_out(rng, monkeypatch):
-    monkeypatch.setenv("GIP_TPU_NO_BUCKETING", "1")
+    monkeypatch.setenv("GIP_NO_BUCKETING", "1")
     img = make_image(rng, 33, 41, 3)
     out, _ = RUNTIME.gaussian_blur(img, sigma=2.0, radius=3, level=1)
     w = gaussian_kernel_f32(3, 2.0)
@@ -86,62 +87,107 @@ def test_sobel_bucket_aligned_width_prefix_slice(rng):
     assert (out[:, 0] == 0).all() and (out[:, -1] == 0).all()
 
 
-def test_loop_timing_env_override(rng, monkeypatch):
-    # Forced ON (CPU default is off): the executable measures loop-delta
-    # kernel time once and reports it for every request.
-    monkeypatch.setenv("GIP_TPU_LOOP_TIMING", "1")
+def test_served_time_is_the_host_clock_of_one_call(rng, monkeypatch):
+    # time_ms is the host clock around ONE execution ending in
+    # block_until_ready: every request runs the program exactly once.
+    calls = []
     img = make_image(rng, 40, 56, 3)
+    RUNTIME.box_blur(img, radius=2, level=2)    # compile + warm
+    key = executable_cache_key("box", 2, _bucket(40), _bucket(56), 3, 2)
+    exe = RUNTIME._cache[key]
+    real = exe._compiled
+    monkeypatch.setattr(exe, "_compiled",
+                        lambda *a: calls.append(1) or real(*a))
     out, metrics = RUNTIME.box_blur(img, radius=2, level=2)
     np.testing.assert_array_equal(out, oracle.box_blur(img, 2))
-    assert metrics.time_ms > 0
-    key = executable_cache_key("box", 2, _bucket(40), _bucket(56), 3, 2)
-    assert RUNTIME._cache[key]._kernel_ms is not None
-    assert metrics.time_ms == RUNTIME._cache[key]._kernel_ms
+    assert metrics.time_ms > 0 and len(calls) == 1
 
 
-def test_loop_timing_default_off_on_cpu(rng, monkeypatch):
-    monkeypatch.delenv("GIP_TPU_LOOP_TIMING", raising=False)
-    from gpu_image_processing_tpu.runtime.dispatch import _loop_timing_enabled
+def test_served_time_excludes_the_device_to_host_copy(rng, monkeypatch):
+    # The fetch of the result (np.asarray on the device array) happens
+    # after the clock stops: a slow fetch must not show in time_ms.
+    import time as _time
 
-    assert _loop_timing_enabled() is False  # tests force the CPU platform
+    from gpu_image_processing.runtime import dispatch
 
+    img = make_image(rng, 40, 56, 3)
+    RUNTIME.box_blur(img, radius=2, level=2)    # compile + warm
+    real = np.asarray
 
-def test_tier_routing_small_images_use_xla_tier(rng, monkeypatch):
-    # Below the measured crossover the level-2 trace fn must come from the
-    # interleaved XLA tier; both tiers are bit-exact, so this only checks
-    # routing + output correctness.
-    monkeypatch.setenv("GIP_TPU_XLA_TIER_MAX_PIXELS", "2500000")
-    img = make_image(rng, 30, 44, 3)
-    out, _ = RUNTIME.gaussian_blur(img, sigma=2.0, radius=3, level=2)
-    w = gaussian_kernel_f32(3, 2.0)
-    np.testing.assert_array_equal(out, oracle.gaussian_blur(img, w, 3))
-    out, _ = RUNTIME.box_blur(img, radius=4, level=2)
-    np.testing.assert_array_equal(out, oracle.box_blur(img, 4))
-    # The routing decision is part of the cache key (an earlier run of the
-    # same shape under a different threshold must not mask it).
-    assert executable_cache_key("gaussian", 2, _bucket(30), _bucket(44), 3, 3) \
-        in RUNTIME._cache
+    def slow_fetch(x, *a, **k):
+        _time.sleep(0.2)
+        return real(x, *a, **k)
+
+    monkeypatch.setattr(dispatch.np, "asarray", slow_fetch)
+    _, metrics = RUNTIME.box_blur(img, radius=2, level=2)
+    assert metrics.time_ms < 150.0
 
 
-def test_box_gate_is_radius_aware(monkeypatch):
-    # The MXU box tier moved box's XLA-tier crossover down to 500k px at
-    # MXU-eligible radii (scripts/exp_box_small_xover.py: 0.84 MP mxu/xla
-    # 0.30-0.51x, 0.26 MP 1.6-1.8x).  r=1 (never MXU) and legacy calls
-    # without radius info keep the plain 1 MP gate.
-    monkeypatch.delenv("GIP_TPU_XLA_TIER_MAX_PIXELS", raising=False)
-    routed = dispatch._routed_to_xla
-    # 768x1092 = 0.84 MP: between the two gates.
-    assert not routed(2, 768, 1092, "box", radius=5, channels=3)
-    assert not routed(4, 768, 1092, "box", radius=2, channels=3)
-    assert routed(2, 768, 1092, "box", radius=1, channels=3)   # VPU-only
-    assert routed(2, 768, 1092, "box")                          # legacy
-    # 480x540 = 0.26 MP: below both gates -> XLA regardless of radius.
-    assert routed(2, 480, 540, "box", radius=5, channels=3)
-    # Other filters ignore the box-specific fields.
-    assert routed(2, 768, 1092, "gaussian", radius=5, channels=3)
-    # The env override still wins over the radius-aware default.
-    monkeypatch.setenv("GIP_TPU_XLA_TIER_MAX_PIXELS", "0")
-    assert not routed(2, 480, 540, "box", radius=5, channels=3)
+def test_level2_serves_the_kernels_at_every_size():
+    # Every size gets the program the measured crossover picks
+    # (ops/pallas/api.py::kernel_serves, PERF.md): the Pallas kernel where
+    # it won on the card, the XLA tier elsewhere; level 1 is always XLA.
+    from gpu_image_processing.ops.pallas.api import kernel_serves
+
+    for h, w in ((30, 44), (1152, 1152), (2146, 3239)):
+        for filt, radius in (("gaussian", 3), ("gaussian", 15), ("box", 5),
+                             ("box", 15), ("sobel", 0)):
+            for lvl in (2, 4):
+                assert _traces_kernel(filt, lvl, radius, h, w, 3) is \
+                    kernel_serves(filt, radius, h * w)
+            assert not _traces_kernel(filt, 1, radius, h, w, 3)
+    assert kernel_serves("gaussian", 3, 2146 * 3239)
+
+
+def _traces_kernel(filt, lvl, radius, h, w, c) -> bool:
+    """Whether the served program of this shape contains a Pallas call."""
+    import jax
+
+    from gpu_image_processing.runtime.dispatch import rows_fn
+
+    spec = [jax.ShapeDtypeStruct((h, w * c), np.uint8)]
+    if filt == "gaussian":
+        spec.append(jax.ShapeDtypeStruct((2 * radius + 1,), np.float32))
+    jaxpr = jax.make_jaxpr(rows_fn(filt, lvl, radius, w, c))(*spec)
+    return "pallas_call" in str(jaxpr)
+
+
+@pytest.mark.parametrize("radius,pixels,kernel", [
+    (1, 64 * 64, True), (3, 64 * 64, True), (4, 512 * 512, False),
+    (7, 512 * 512, False), (7, 724 * 724, True), (7, 2146 * 3239, True),
+    (8, 1023 * 1024, False), (15, 1023 * 1024, False),
+    (8, 2_000_000, True), (15, 2146 * 3239, True),
+    (16, 2146 * 3239, False), (31, 7680 * 4320, False), (800, 10**8, False)])
+def test_box_gate_is_radius_aware(radius, pixels, kernel):
+    # The measured crossover (PERF.md): the kernel's O(r) taps against the
+    # XLA tier's O(log r) doubling sums, by radius and pixel count.
+    from gpu_image_processing.ops.pallas.api import kernel_serves
+
+    assert kernel_serves("box", radius, pixels) is kernel
+
+
+@pytest.mark.parametrize("radius,pixels,kernel", [
+    (1, 64 * 64, True), (3, 256 * 256, True), (4, 256 * 256, False),
+    (15, 256 * 256, False), (4, 512 * 512, True), (15, 2146 * 3239, True),
+    (31, 1000 * 1000, True)])
+def test_gaussian_gate_is_size_aware(radius, pixels, kernel):
+    # Small images at radius > 3 run the XLA tier: the kernel's shrunken
+    # row bands recompute too many halo rows there (PERF.md).
+    from gpu_image_processing.ops.pallas.api import kernel_serves
+
+    assert kernel_serves("gaussian", radius, pixels) is kernel
+    assert kernel_serves("sobel", 0, pixels)
+
+
+@pytest.mark.parametrize("radius,shape", [(3, (40, 60, 3)), (12, (40, 60, 3)),
+                                          (20, (33, 17, 4))])
+def test_box_gate_serves_both_tiers_exactly(rng, radius, shape):
+    # Whichever tier the gate picks (traced shape decides), the served
+    # output is exact.
+    img = make_image(rng, *shape)
+    for lvl in (2, 4):
+        out, _ = RUNTIME.box_blur(img, radius=radius, level=lvl)
+        np.testing.assert_array_equal(out, oracle.box_blur(img, radius))
 
 
 def test_batch_sobel_bucket_aligned_width(rng):
@@ -155,34 +201,6 @@ def test_batch_sobel_bucket_aligned_width(rng):
         assert (out[i][0] == 0).all() and (out[i][:, -1] == 0).all()
 
 
-def test_tier_routing_threshold_zero_forces_pallas(rng, monkeypatch):
-    monkeypatch.setenv("GIP_TPU_XLA_TIER_MAX_PIXELS", "0")
-    from gpu_image_processing_tpu.runtime.dispatch import _rows_optimized
-
-    # With threshold 0 the resolver must NOT return the XLA-tier lambda;
-    # it reaches the Pallas branch (interpret mode on CPU).
-    fn = _rows_optimized("gaussian", 2, 3, 30, 44, 3)
-    assert "gaussian_pallas_rows" in (fn.__code__.co_names + tuple(
-        c.cell_contents.__name__ for c in (fn.__closure__ or ())
-        if callable(getattr(c, "cell_contents", None))
-        and hasattr(c.cell_contents, "__name__")
-    ))
-
-
-def test_extreme_shape_uses_column_tiling():
-    # Shapes whose full-width working set exceeds even the raised 64 MB
-    # scoped-VMEM budget (ops/pallas/blur.py _VMEM_SCOPE_BYTES) switch to
-    # column-tiled grid steps instead of dying in the Mosaic compiler.
-    # (Round 1 chunked at 8K x r15 under the default 16 MB scope; the
-    # raised scope runs that full-width now -- measured faster.)
-    from gpu_image_processing_tpu.ops.pallas.blur import blur_kernel_fits_vmem
-
-    assert not blur_kernel_fits_vmem(16384, 31, 3, True, interleaved=True)
-    assert not blur_kernel_fits_vmem(7680, 100, 3, True, interleaved=True)
-    assert blur_kernel_fits_vmem(_bucket(7680), 15, 3, True, interleaved=True)
-    assert blur_kernel_fits_vmem(3239, 15, 3, True, interleaved=True)
-
-
 def test_extreme_shape_output_exact(rng):
     # Functional check: the real 8K width (column-tiled kernel) with a few
     # rows; fit depends on width and radius, not height.
@@ -191,40 +209,10 @@ def test_extreme_shape_output_exact(rng):
     np.testing.assert_array_equal(out, oracle.box_blur(img, 15))
 
 
-def test_vmem_infeasible_radius_routes_to_xla_tier(rng):
+def test_radius_past_kernel_routes_to_xla_tier(rng):
     # Box has no radius cap (reference parity: boxBlur accepts any radius,
-    # image_filters.cu:945).  Past a radius in the low hundreds even the
-    # column-chunked Pallas working set ((8+2r) halo rows) exceeds VMEM;
-    # dispatch must serve such calls from the XLA tier instead of dying in
-    # the Mosaic compiler.
-    from gpu_image_processing_tpu.ops.pallas.blur import blur_pallas_feasible
-    from gpu_image_processing_tpu.runtime.dispatch import RUNTIME, _rows_optimized
-
-    def routed_names(fn):
-        return fn.__code__.co_names + tuple(
-            c.cell_contents.__name__ for c in (fn.__closure__ or ())
-            if callable(getattr(c, "cell_contents", None))
-            and hasattr(c.cell_contents, "__name__"))
-
-    # r=500 @ w=3239: the sequenced-tap VPU working set exceeds VMEM but
-    # the MXU kernel (one tile of matmul temporaries) still fits -- MXU
-    # eligibility is consulted FIRST, so this serves the MXU tier, not a
-    # demotion to XLA (the pre-round-4 behavior).
-    from gpu_image_processing_tpu.ops.pallas.blur_mxu import use_mxu_box
-
-    assert not blur_pallas_feasible(3239, 500, 3, True, interleaved=True)
-    assert use_mxu_box(500, 3239, 3, interleaved=True)
-    names = routed_names(_rows_optimized("box", 2, 500, 2146, 3239, 3))
-    assert "box_mxu_rows" in names and "box_rows" not in names
-
-    # r=800 @ w=3239: NEITHER kernel fits -- the XLA tier serves it.
-    assert not use_mxu_box(800, 3239, 3, interleaved=True)
-    names = routed_names(_rows_optimized("box", 2, 800, 2146, 3239, 3))
-    assert "box_pallas_rows" not in names and "box_mxu_rows" not in names
-    assert "box_rows" in names
-
-    # End-to-end: the runtime serves an extreme radius and matches the
-    # oracle (small image -> its own bucketed-shape routing applies).
+    # image_filters.cu:945); the runtime serves an extreme radius from the
+    # XLA tier and matches the oracle.
     img = make_image(rng, 40, 60, 3)
     out, _ = RUNTIME.box_blur(img, radius=800, level=2)
     np.testing.assert_array_equal(out, oracle.box_blur(img, 800))

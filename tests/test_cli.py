@@ -12,7 +12,7 @@ from PIL import Image
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CLI = os.path.join(REPO, "scripts", "filter_image.py")
 
-ENV = {**os.environ, "GIP_TPU_PLATFORM": "cpu", "JAX_PLATFORM_NAME": "cpu"}
+ENV = {**os.environ, "JAX_PLATFORMS": "cpu"}
 
 
 def _run(*args, timeout=240):
@@ -56,7 +56,7 @@ def test_filter_image_validates_ranges(rng):
 def test_filter_image_hdr_output(rng):
     # .hdr output rides the native Radiance writer (stb_image_write's
     # fifth format); PIL cannot write it at all.
-    from gpu_image_processing_tpu.utils import native_codec
+    from gpu_image_processing.utils import native_codec
 
     if not native_codec.available():
         pytest.skip("native codec not built")
@@ -80,7 +80,7 @@ def test_save_image_jpg_without_pil(rng, monkeypatch, tmp_path):
     """PIL-less .jpg output rides the native baseline encoder (the
     stb_image_write parity set includes jpg); with PIL present the
     libjpeg-turbo path is preferred and this branch must stay dormant."""
-    from gpu_image_processing_tpu.utils import native_codec
+    from gpu_image_processing.utils import native_codec
 
     if not native_codec.available():
         pytest.skip("native codec not built")

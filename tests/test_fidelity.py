@@ -15,8 +15,8 @@ import jax
 import numpy as np
 import pytest
 
-from gpu_image_processing_tpu.ops import fused, interleaved as il, ref
-from gpu_image_processing_tpu.ops.weights import gaussian_kernel_f32
+from gpu_image_processing.ops import fused, interleaved as il, ref
+from gpu_image_processing.ops.weights import gaussian_kernel_f32
 
 from .conftest import make_image
 from . import oracle_numpy as oracle

@@ -32,8 +32,8 @@ def test_assets_referenced_exist():
 def test_js_targets_real_api_routes():
     js = _read("js/app.js")
     routes = set(re.findall(r"/api/[a-z-]+", js))
-    from gpu_image_processing_tpu.server.app import create_app
-    from gpu_image_processing_tpu.server.http import Request
+    from gpu_image_processing.server.app import create_app
+    from gpu_image_processing.server.http import Request
 
     app = create_app()
     for route in routes:
@@ -78,7 +78,7 @@ def test_every_common_metric_key_renders(rng=None):
     through a dedicated expansion (per-kernel duration rows)."""
     import numpy as np
 
-    from gpu_image_processing_tpu.profiling.profiler import (
+    from gpu_image_processing.profiling.profiler import (
         get_common_metrics,
         profile_filter,
     )

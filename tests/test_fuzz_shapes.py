@@ -5,8 +5,8 @@ pads, DMA alignment slack, halo bands, odd widths/heights)."""
 import numpy as np
 import pytest
 
-from gpu_image_processing_tpu.ops.weights import gaussian_kernel_f32
-from gpu_image_processing_tpu.runtime.dispatch import RUNTIME
+from gpu_image_processing.ops.weights import gaussian_kernel_f32
+from gpu_image_processing.runtime.dispatch import RUNTIME
 
 from . import oracle_numpy as oracle
 from .sobel_tolerance import assert_sobel_close
@@ -72,20 +72,16 @@ def test_box_doubling_exact(radius, c):
         np.testing.assert_array_equal(out, oracle.box_blur(img, radius))
 
 
-def test_box_doubling_xla_tier_exact(monkeypatch):
-    # Force the XLA tier (small-image routing) at its doubling radius.
-    # The XLA tier's crossover is r=15 (BOX_DOUBLING_MIN_RADIUS_XLA: the
-    # shifted-slice doubling materializes log2(taps) HBM intermediates, so
-    # on silicon it loses below r=15 -- exp_box_doubling_xla_tier.py);
-    # below that it serves the sequential tap order.
-    from gpu_image_processing_tpu.ops.interleaved import (
-        BOX_DOUBLING_MIN_RADIUS_XLA,
-    )
+def test_box_doubling_xla_tier_exact():
+    # Small images at radius 8-15 route level-2 box blurs to the XLA
+    # tier's doubling window sums (ops/pallas/api.py::kernel_serves); the
+    # output stays bit-identical to the sequential-tap oracle.
+    from gpu_image_processing.ops.pallas.api import kernel_serves
 
-    monkeypatch.setenv("GIP_TPU_XLA_TIER_MAX_PIXELS", "2500000")
     rng = np.random.default_rng(77)
     img = rng.integers(0, 256, (38, 47, 3), dtype=np.uint8)
-    for radius in (9, BOX_DOUBLING_MIN_RADIUS_XLA):
+    for radius in (9, 15):
+        assert not kernel_serves("box", radius, 64 * 64)
         out, _ = RUNTIME.box_blur(img, radius=radius, level=2)
         np.testing.assert_array_equal(out, oracle.box_blur(img, radius))
 

@@ -4,7 +4,7 @@ import jax
 import numpy as np
 import pytest
 
-from gpu_image_processing_tpu.ops import layout
+from gpu_image_processing.ops import layout
 
 from .conftest import make_image
 

@@ -7,8 +7,8 @@ import numpy as np
 import pytest
 from PIL import Image
 
-from gpu_image_processing_tpu.utils import native_codec
-from gpu_image_processing_tpu.utils.image import decode_base64_image, encode_image_to_base64
+from gpu_image_processing.utils import native_codec
+from gpu_image_processing.utils.image import decode_base64_image, encode_image_to_base64
 
 from .conftest import make_image
 
@@ -144,7 +144,7 @@ def test_jpeg_serving_path_native(rng):
     assert int(np.abs(arr.astype(int) - img.astype(int)).max()) <= 20
 
     # Same payload through the native tier (PIL masked out).
-    from gpu_image_processing_tpu.utils import image as image_mod
+    from gpu_image_processing.utils import image as image_mod
 
     orig = image_mod.PIL_AVAILABLE
     image_mod.PIL_AVAILABLE = False
@@ -160,7 +160,7 @@ def test_png_chunk_neutrality_scanner(rng):
     # The original-image passthrough gate: rendering-neutral chunks pass,
     # anything affecting display (tRNS, gAMA, APNG, ...) or a malformed
     # chunk stream refuses the passthrough.
-    from gpu_image_processing_tpu.utils.image import _png_chunks_neutral
+    from gpu_image_processing.utils.image import _png_chunks_neutral
     import struct, zlib as _zlib
 
     img = make_image(rng, 8, 9, 3)
@@ -250,7 +250,7 @@ def test_jpeg_progressive_restart_markers(rng):
 def test_jpeg_progressive_serving_tier(rng):
     # With PIL masked, a progressive upload decodes on the native tier
     # (decode_tiers.native_jpeg increments) — the VERDICT r3 "done" gate.
-    from gpu_image_processing_tpu.utils import image as image_mod
+    from gpu_image_processing.utils import image as image_mod
 
     img = _smooth_rgb(rng, 24, 24)
     buf = io.BytesIO()
@@ -289,7 +289,7 @@ def test_palette_png_decodes_natively(rng):
     # 4 (PLTE expansion, stb_image.h:5134 analog): the serving path decodes
     # them on the native tier and the result matches PIL's own palette
     # expansion byte-for-byte.
-    from gpu_image_processing_tpu.utils import image as image_util
+    from gpu_image_processing.utils import image as image_util
 
     image_util.reset_decode_tier_counts()
     img = make_image(rng, 10, 11, 3)
@@ -312,7 +312,7 @@ def test_gif_still_decodes_via_pil(rng):
     C-speed and also covers animated-first-frame and WebP, which stb
     cannot; the tier counters make the fallback visible.  Recorded in
     PARITY.md (decoder-breadth note)."""
-    from gpu_image_processing_tpu.utils import image as image_util
+    from gpu_image_processing.utils import image as image_util
 
     image_util.reset_decode_tier_counts()
     img = make_image(rng, 12, 13, 3)
@@ -581,7 +581,7 @@ def test_tga_reads_pil_rle(rng, tmp_path):
 
 
 def test_jpeg_header_neutrality_scanner(rng):
-    from gpu_image_processing_tpu.utils.image import _jpeg_headers_neutral
+    from gpu_image_processing.utils.image import _jpeg_headers_neutral
 
     img = _smooth_rgb(rng, 16, 16)
     buf = io.BytesIO()

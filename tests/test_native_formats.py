@@ -2,7 +2,7 @@
 
 The reference's C++ tier decodes GIF/BMP/PSD/HDR/PIC through vendored stb
 (/root/reference/external/stb_image.h:118-139); these tests pin the native
-TPU-stack equivalents.  Cross-validation strategy per format:
+native equivalents here.  Cross-validation strategy per format:
 
 * GIF / BMP / PSD -- decode the same bytes with PIL and require byte
   equality (PIL is an independent implementation).
@@ -21,8 +21,8 @@ import numpy as np
 import pytest
 from PIL import Image
 
-from gpu_image_processing_tpu.utils import image as image_utils
-from gpu_image_processing_tpu.utils import native_codec
+from gpu_image_processing.utils import image as image_utils
+from gpu_image_processing.utils import native_codec
 
 needs_native = pytest.mark.skipif(
     not native_codec.available(), reason="native codec not built"

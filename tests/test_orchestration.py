@@ -21,12 +21,11 @@ def test_start_status_stop_cycle():
     run_dir = tempfile.mkdtemp(prefix="gip_orch_")
     env = {
         **os.environ,
-        "GIP_TPU_PLATFORM": "cpu",
-        "GIP_TPU_RUN_DIR": run_dir,
-        "JAX_PLATFORM_NAME": "cpu",
+        "JAX_PLATFORMS": "cpu",
+        "GIP_RUN_DIR": run_dir,
         # Own port: must not collide with a live server on the default
-        # 8000 (config honors GIP_TPU_BACKEND_PORT).
-        "GIP_TPU_BACKEND_PORT": "8481",
+        # 8000 (config honors GIP_BACKEND_PORT).
+        "GIP_BACKEND_PORT": "8481",
     }
     try:
         start = subprocess.run(

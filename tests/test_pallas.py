@@ -1,6 +1,7 @@
-"""Pallas level-2 kernels, run through the interpreter on CPU, held to
-EXACT equality against the independent numpy oracle -- the same kernel code
-compiles through Mosaic on TPU."""
+"""Pallas kernels (blur and Sobel, written for Triton), run through the
+interpreter on CPU and held to EXACT equality against the independent
+numpy oracle -- the same kernel code compiles through Triton on the GPU
+(tests/test_gpu.py runs it there)."""
 
 from functools import partial
 
@@ -8,9 +9,8 @@ import jax
 import numpy as np
 import pytest
 
-from gpu_image_processing_tpu.ops.pallas.blur import box_pallas, gaussian_pallas
-from gpu_image_processing_tpu.ops.pallas.sobel import sobel_pallas
-from gpu_image_processing_tpu.ops.weights import gaussian_kernel_f32
+from gpu_image_processing.ops.pallas import api, blur, sobel
+from gpu_image_processing.ops.weights import gaussian_kernel_f32
 
 from . import oracle_numpy as oracle
 from .conftest import make_image
@@ -21,17 +21,31 @@ SHAPES = [(24, 31, 3), (19, 23, 1), (17, 29, 4)]
 
 @partial(jax.jit, static_argnums=(2,))
 def _gauss(img, w, radius):
-    return gaussian_pallas(img, w, radius, interpret=True)
+    return api.level2_impls(interpret=True)["gaussian"](img, w, radius)
 
 
 @partial(jax.jit, static_argnums=(1,))
 def _box(img, radius):
-    return box_pallas(img, radius, interpret=True)
+    return api.level2_impls(interpret=True)["box"](img, radius)
 
 
 @jax.jit
 def _sobel(img):
-    return sobel_pallas(img, interpret=True)
+    return api.level2_impls(interpret=True)["sobel"](img)
+
+
+def _rows_gauss(img, w, radius):
+    h, wd, c = img.shape
+    out = jax.jit(lambda x, ww: blur.gaussian_rows(
+        x, ww, radius, c, interpret=True))(img.reshape(h, wd * c), w)
+    return np.asarray(out).reshape(img.shape)
+
+
+def _rows_box(img, radius):
+    h, wd, c = img.shape
+    out = jax.jit(lambda x: blur.box_rows(x, radius, c, interpret=True))(
+        img.reshape(h, wd * c))
+    return np.asarray(out).reshape(img.shape)
 
 
 @pytest.mark.parametrize("shape", SHAPES)
@@ -47,15 +61,17 @@ def test_gaussian_pallas_max_radius(rng):
     # radius=15 (the API's upper bound, app.py:148) with a tiny image.
     img = make_image(rng, 40, 22, 3)
     w = gaussian_kernel_f32(15, 8.0)
-    np.testing.assert_array_equal(
-        np.asarray(_gauss(img, w, 15)), oracle.gaussian_blur(img, w, 15)
-    )
+    np.testing.assert_array_equal(_rows_gauss(img, w, 15),
+                                  oracle.gaussian_blur(img, w, 15))
 
 
 @pytest.mark.parametrize("shape", SHAPES)
 def test_box_pallas_exact(rng, shape):
     img = make_image(rng, *shape)
-    np.testing.assert_array_equal(np.asarray(_box(img, 5)), oracle.box_blur(img, 5))
+    np.testing.assert_array_equal(_rows_box(img, 5), oracle.box_blur(img, 5))
+    # The registry routes a small image at radius 5 to the XLA tier.
+    np.testing.assert_array_equal(np.asarray(_box(img, 5)),
+                                  oracle.box_blur(img, 5))
 
 
 @pytest.mark.parametrize("shape", SHAPES)
@@ -64,468 +80,153 @@ def test_sobel_pallas_matches_oracle(rng, shape):
     assert_sobel_close(np.asarray(_sobel(img)), oracle.sobel(img, 2))
 
 
-def test_tile_boundary_rows(rng):
-    # Height > one tile: force multiple grid steps even with the default
-    # tile_rows by using an image taller than the tile.
-    from gpu_image_processing_tpu.core.config import TPU
-
-    h = TPU.blur_tile_rows + 13
+@pytest.mark.parametrize("h", [7, 8, 9, 16, 17, 45])
+def test_tile_boundary_rows(rng, h):
+    # Heights around the row-band size (8 rows at these widths) put the
+    # last band's end, and its halo, on every side of a boundary.
+    assert blur.geometry(1, h, 17, 4)["block_rows"] == 8
     img = make_image(rng, h, 17, 1)
     w = gaussian_kernel_f32(4, 2.5)
-    got = np.asarray(jax.jit(
-        lambda x, wt: gaussian_pallas(x, wt, 4, interpret=True)
-    )(img, w))
-    np.testing.assert_array_equal(got, oracle.gaussian_blur(img, w, 4))
+    np.testing.assert_array_equal(_rows_gauss(img, w, 4),
+                                  oracle.gaussian_blur(img, w, 4))
 
 
-# ------------------------------------------------------ interleaved (flat)
-# The serving-path kernels: consume the flat HWC byte buffer's natural
-# (H, W*C) layout; taps shift by C lanes (see ops/pallas/blur.py
-# _separable_blur_interleaved).
+# ------------------------------------------------------ interleaved rows
+# The serving-path kernels consume the HWC byte buffer's natural (H, W*C)
+# layout; taps shift by C lanes.
 
 @pytest.mark.parametrize("shape", SHAPES)
-def test_gaussian_flat_exact(rng, shape):
-    from gpu_image_processing_tpu.ops.pallas.blur import gaussian_pallas_flat
-
-    h, w, c = shape
+def test_gaussian_rows_exact(rng, shape):
     img = make_image(rng, *shape)
     wts = gaussian_kernel_f32(3, 2.0)
-    got = np.asarray(jax.jit(lambda f, wt: gaussian_pallas_flat(
-        f, wt, 3, h, w, c, interpret=True))(img.reshape(-1), wts))
-    np.testing.assert_array_equal(
-        got.reshape(h, w, c), oracle.gaussian_blur(img, wts, 3))
+    np.testing.assert_array_equal(_rows_gauss(img, wts, 3),
+                                  oracle.gaussian_blur(img, wts, 3))
 
 
 @pytest.mark.parametrize("shape", SHAPES)
-def test_sobel_flat_matches_oracle(rng, shape):
-    from gpu_image_processing_tpu.ops.pallas.sobel import sobel_pallas_flat
-
+@pytest.mark.parametrize("level", [1, 2])
+def test_sobel_rows_matches_oracle(rng, shape, level):
     h, w, c = shape
     img = make_image(rng, *shape)
-    got = np.asarray(jax.jit(lambda f: sobel_pallas_flat(
-        f, h, w, c, level=2, interpret=True))(img.reshape(-1)))
-    assert_sobel_close(got.reshape(h, w, c), oracle.sobel(img, 2))
+    got = np.asarray(jax.jit(lambda f: sobel.sobel_rows(
+        f, c, quantize_gray=level == 2, interpret=True))(img.reshape(h, -1)))
+    assert_sobel_close(got.reshape(h, w, c), oracle.sobel(img, level))
 
 
-def test_box_flat_batch_exact(rng):
-    from gpu_image_processing_tpu.ops.pallas.blur import box_pallas_flat_batch
-
-    imgs = np.stack([make_image(rng, 25, 31, 3) for _ in range(3)])
-    got = np.asarray(jax.jit(lambda f: box_pallas_flat_batch(
-        f, 4, 25, 31, 3, interpret=True))(imgs.reshape(3, -1)))
+@pytest.mark.parametrize("c", [1, 3, 4])
+def test_box_rows_batch_exact(rng, c):
+    imgs = np.stack([make_image(rng, 25, 31, c) for _ in range(3)])
+    got = np.asarray(jax.jit(lambda f: blur.box_rows(
+        f, 4, c, interpret=True))(imgs.reshape(3, 25, -1)))
     for i in range(3):
         np.testing.assert_array_equal(
-            got[i].reshape(25, 31, 3), oracle.box_blur(imgs[i], 4))
+            got[i].reshape(25, 31, c), oracle.box_blur(imgs[i], 4))
 
 
-def test_gaussian_flat_folded_gate(rng):
-    # ADVANCED tier on the flat path: symmetric folding, maxdiff <= 1 vs
-    # the strict-order level 2 (the reference's own L1<->L2 gate).
-    from gpu_image_processing_tpu.ops.pallas.blur import gaussian_pallas_flat
-
-    h, w, c = 33, 47, 3
-    img = make_image(rng, h, w, c)
-    wts = gaussian_kernel_f32(5, 3.0)
-    exact = np.asarray(jax.jit(lambda f, wt: gaussian_pallas_flat(
-        f, wt, 5, h, w, c, interpret=True))(img.reshape(-1), wts))
-    folded = np.asarray(jax.jit(lambda f, wt: gaussian_pallas_flat(
-        f, wt, 5, h, w, c, interpret=True, folded=True))(img.reshape(-1), wts))
-    assert np.abs(exact.astype(int) - folded.astype(int)).max() <= 1
+@pytest.mark.parametrize("c", [1, 3, 4])
+def test_gaussian_rows_batch_exact(rng, c):
+    imgs = np.stack([make_image(rng, 21, 18, c) for _ in range(2)])
+    w = gaussian_kernel_f32(2, 1.5)
+    got = np.asarray(jax.jit(lambda f, ww: blur.gaussian_rows(
+        f, ww, 2, c, interpret=True))(imgs.reshape(2, 21, -1), w))
+    for i in range(2):
+        np.testing.assert_array_equal(
+            got[i].reshape(21, 18, c), oracle.gaussian_blur(imgs[i], w, 2))
 
 
-# -- big-radius halos (no box radius cap, matching the reference's boxBlur:
-#    image_filters.cu:945 accepts any radius) ------------------------------
+def test_level4_impls_within_gate(rng):
+    # ADVANCED tier: maxdiff <= 1 vs the strict-order level 2 (the
+    # reference's own L1<->L2 gate); the blurs share the level-2 kernel.
+    img = make_image(rng, 33, 47, 3)
+    wts = gaussian_kernel_f32(3, 3.0)
+    exact = np.asarray(_gauss(img, wts, 3))
+    adv = np.asarray(jax.jit(
+        lambda x, ww: api.level4_impls(interpret=True)["gaussian"](x, ww, 3))(
+            img, wts))
+    assert np.abs(exact.astype(int) - adv.astype(int)).max() <= 1
+
+
+# -- radii: large halos, strips narrower than the halo, images shorter or
+#    narrower than the radius ---------------------------------------------
 
 @pytest.mark.parametrize("shape,radius", [
-    ((24, 40, 4), 40),   # halo 160 > 128: landing offset must grow
-    ((16, 50, 3), 43),   # halo 129, just past one register
-    ((10, 20, 1), 60),   # planar-stride halo > tile minimum
+    ((24, 40, 4), 20),   # halo 80 lanes: a third of a 256-lane strip
+    ((16, 50, 3), 31),   # the largest kernel radius
+    ((10, 20, 1), 16),   # halo wider than the image
 ])
-def test_box_radius_exceeding_land_exact(rng, shape, radius):
-    """halo = radius*C > 128 forces a larger register-aligned landing
-    offset (blur.py::_landed_geometry); results stay bit-exact."""
-    from gpu_image_processing_tpu.ops.pallas.blur import box_pallas_rows
-
+def test_box_large_radius_exact(rng, shape, radius):
     img = make_image(rng, *shape)
-    h, w, c = shape
-    rows = img.reshape(h, w * c)
-    got = np.asarray(jax.jit(
-        lambda x: box_pallas_rows(x, radius, c, interpret=True))(rows))
-    np.testing.assert_array_equal(
-        got, oracle.box_blur(img, radius).reshape(h, w * c))
-    got_hwc = np.asarray(_box(img, radius))
-    np.testing.assert_array_equal(got_hwc, oracle.box_blur(img, radius))
+    np.testing.assert_array_equal(_rows_box(img, radius),
+                                  oracle.box_blur(img, radius))
 
 
-def test_box_halo_spanning_column_chunks_exact(rng):
-    """Column-tiled kernel with halo (1560 lanes) wider than one column
-    chunk (1536): multiple chunks carry clamp-to-edge fills
-    (blur.py::_fill_sites)."""
-    import jax.numpy as jnp
+def test_box_past_kernel_radius_routes_to_xla_tier(rng):
+    """Box has no radius cap (reference parity); radii past the kernel's
+    register ring run the exact XLA doubling sums, at every entry point."""
+    img = make_image(rng, 12, 20, 3)
+    radius = blur.MAX_RADIUS + 9
+    with pytest.raises(ValueError, match="radius"):
+        blur.box_rows(img.reshape(12, 60), radius, 3, interpret=True)
+    np.testing.assert_array_equal(np.asarray(_box(img, radius)),
+                                  oracle.box_blur(img, radius))
 
-    from gpu_image_processing_tpu.ops.pallas import blur as B
-    from gpu_image_processing_tpu.ops.weights import box_inv_taps_f32
 
-    h, w, c, radius = 16, 4000, 3, 520
-    land, cs, n_cols, w_t, _ = B._landed_geometry(w * c, radius * c,
-                                                  chunked=True)
-    assert n_cols > 1 and radius * c > cs  # the scenario under test
+def test_halo_spanning_strips_exact(rng):
+    """Several lane strips, with a halo nearly as wide as a strip: taps
+    read most of the neighbouring strips and clamp at both image edges."""
+    h, w, c, radius = 9, 300, 4, 31
+    assert 4 * radius * c > blur.geometry(1, h, w * c, radius)["block_lanes"]
     img = make_image(rng, h, w, c)
-    rows = img.reshape(h, w * c)
-    inv = np.full(2 * radius + 1, box_inv_taps_f32(radius), dtype=np.float32)
-    got = np.asarray(jax.jit(lambda x: B._separable_blur_interleaved(
-        x[None], jnp.asarray(inv), radius, box_mode=True, channels=c,
-        interpret=True)[0])(rows))
-    np.testing.assert_array_equal(
-        got, oracle.box_blur(img, radius).reshape(h, w * c))
+    np.testing.assert_array_equal(_rows_box(img, radius),
+                                  oracle.box_blur(img, radius))
 
 
 @pytest.mark.parametrize("h,radius", [(2, 3), (5, 7), (1, 3), (9, 8)])
 def test_rowfill_height_smaller_than_radius(rng, h, radius):
-    """Round-2 constant-row-pad path: heights at or below the radius make
-    BOTH in-kernel clamp fills (top band 0 + bottom band) land in the same
-    band -- the fill order (top first) must still reproduce clamp-to-edge
-    exactly."""
-    from gpu_image_processing_tpu.ops.pallas.blur import (
-        box_pallas_rows,
-        gaussian_pallas_rows,
-    )
-
+    """Heights at or below the radius: every halo row of every band clamps
+    to an image row, from both ends at once."""
     img = make_image(rng, h, 20, 3)
-    rows = img.reshape(h, 60)
     w = gaussian_kernel_f32(radius, 2.5)
-    got = np.asarray(jax.jit(lambda x, ww: gaussian_pallas_rows(
-        x, ww, radius, 3, interpret=True))(rows, w))
-    np.testing.assert_array_equal(
-        got, oracle.gaussian_blur(img, w, radius).reshape(h, 60))
-
-    got = np.asarray(jax.jit(lambda x: box_pallas_rows(
-        x, radius, 3, interpret=True))(rows))
-    np.testing.assert_array_equal(
-        got, oracle.box_blur(img, radius).reshape(h, 60))
+    np.testing.assert_array_equal(_rows_gauss(img, w, radius),
+                                  oracle.gaussian_blur(img, w, radius))
+    np.testing.assert_array_equal(_rows_box(img, radius),
+                                  oracle.box_blur(img, radius))
 
 
-def test_rowfill_last_band_boundary(rng):
-    """Heights straddling a tile boundary place the bottom clamp fill in a
-    band other than 0; the @pl.when(i == last_band) site must fire there."""
-    from gpu_image_processing_tpu.ops.pallas import blur as B
-
-    radius, c = 3, 1
-    # Force small tiles so multiple bands exist even at modest heights.
-    for h in (17, 24, 25):
-        img = make_image(rng, h, 24, c)
-        rows = img.reshape(h, 24)
-        w = gaussian_kernel_f32(radius, 2.0)
-        got = np.asarray(jax.jit(lambda x, ww: B._separable_blur_interleaved(
-            x[None], ww, radius, box_mode=False, channels=c,
-            interpret=True, tile_rows=8)[0])(rows, w))
-        np.testing.assert_array_equal(
-            got, oracle.gaussian_blur(img, w, radius).reshape(h, 24),
-            err_msg=f"h={h}")
+@pytest.mark.parametrize("width", [1, 2, 5])
+def test_narrow_images_clamp_columns(rng, width):
+    """Images narrower than the radius clamp every tap to a real pixel."""
+    img = make_image(rng, 13, width, 3)
+    w = gaussian_kernel_f32(4, 2.0)
+    np.testing.assert_array_equal(_rows_gauss(img, w, 4),
+                                  oracle.gaussian_blur(img, w, 4))
 
 
-def test_rowfill_last_band_boundary_mxu(rng):
-    """MXU tier analog of the trailing-band clamp-fill sites."""
-    from gpu_image_processing_tpu.ops.pallas import blur_mxu as M
-
-    radius, c = 5, 3
-    w = gaussian_kernel_f32(radius, 3.0)
-    for h in (17, 25):
-        img = make_image(rng, h, 12, c)
-        rows = img.reshape(h, 36)
-        got = np.asarray(jax.jit(lambda x, ww: M._gaussian_mxu(
-            x[None], ww, radius, tap_stride=c, interpret=True,
-            tile_rows=8)[0])(rows, w))
-        want = oracle.gaussian_blur(img, w, radius).reshape(h, 36)
-        diff = np.abs(got.astype(int) - want.astype(int))
-        assert diff.max() <= 1, f"h={h} maxdiff={diff.max()}"  # MXU gate
-
-
-@pytest.mark.parametrize("radius", [1, 3, 4])
-@pytest.mark.parametrize("folded", [False, True])
-def test_chained_taps_exact(rng, radius, folded):
-    """Value-chained tap accumulation (chained=True) is bit-identical to
-    the oracle: same f32 term/add order as the sequenced-ref path, only
-    the accumulator storage differs (ops/pallas/blur.py::conv_value)."""
+@pytest.mark.parametrize("radius", [1, 2, 3, 4])
+def test_gaussian_radii_exact(rng, radius):
     img = make_image(rng, 33, 21, 3)
     w = gaussian_kernel_f32(radius, 2.0)
-    got = np.asarray(jax.jit(lambda x, ww: gaussian_pallas(
-        x, ww, radius, interpret=True, folded=folded, chained=True))(img, w))
-    np.testing.assert_array_equal(got, oracle.gaussian_blur(img, w, radius))
+    np.testing.assert_array_equal(_rows_gauss(img, w, radius),
+                                  oracle.gaussian_blur(img, w, radius))
 
 
-def test_chained_taps_rows_and_box(rng):
-    from gpu_image_processing_tpu.ops.pallas import blur as B
-
-    img = make_image(rng, 29, 19, 3)
-    rows = img.reshape(29, 57)
-    w = gaussian_kernel_f32(2, 1.5)
-    got = np.asarray(jax.jit(lambda x, ww: B.gaussian_pallas_rows(
-        x, ww, 2, 3, interpret=True, chained=True))(rows, w))
-    np.testing.assert_array_equal(
-        got, oracle.gaussian_blur(img, w, 2).reshape(29, 57))
-    got = np.asarray(jax.jit(lambda x: B.box_pallas_rows(
-        x, 3, 3, interpret=True, chained=True))(rows))
-    np.testing.assert_array_equal(
-        got, oracle.box_blur(img, 3).reshape(29, 57))
-    # doubling radii ignore the flag (box r>=4 routes to windowed sums)
-    got = np.asarray(jax.jit(lambda x: B.box_pallas_rows(
-        x, 5, 3, interpret=True, chained=True))(rows))
-    np.testing.assert_array_equal(
-        got, oracle.box_blur(img, 5).reshape(29, 57))
+def test_rows_kernels_reject_bad_rows(rng):
+    rows = make_image(rng, 8, 10, 1).reshape(8, 10)
+    with pytest.raises(ValueError, match="multiple of 3 channels"):
+        blur.box_rows(rows, 2, 3, interpret=True)
+    with pytest.raises(ValueError, match="multiple of 3 channels"):
+        sobel.sobel_rows(rows, 3, True, interpret=True)
 
 
-def test_chained_multiband_tiles(rng):
-    """Chained kernels across several row bands (tile_rows=8 forces a
-    multi-band grid) keep the row-fill/halo logic intact."""
-    from gpu_image_processing_tpu.ops.pallas import blur as B
-
-    for h in (17, 24, 25):
-        img = make_image(rng, h, 24, 1)
-        rows = img.reshape(h, 24)
-        w = gaussian_kernel_f32(3, 2.0)
-        got = np.asarray(jax.jit(lambda x, ww: B._separable_blur_interleaved(
-            x[None], ww, 3, box_mode=False, channels=1,
-            interpret=True, tile_rows=8, chained=True)[0])(rows, w))
-        np.testing.assert_array_equal(
-            got, oracle.gaussian_blur(img, w, 3).reshape(h, 24),
-            err_msg=f"h={h}")
-
-
-@pytest.mark.parametrize("radius", [2, 4, 5, 9])
-def test_box_mxu_bit_exact_planar(rng, radius):
-    """The MXU box tier is BIT-EXACT vs the naive oracle (not merely
-    maxdiff<=1 like the weighted gaussian tier): the ones band makes every
-    f32 partial sum an exact integer, and the epilogue multiplies by the
-    same f32 reciprocal the oracle uses (blur_mxu.py module docstring)."""
-    from gpu_image_processing_tpu.ops.pallas import blur_mxu as M
-
-    img = make_image(rng, 31, 22, 3)
-    got = np.asarray(jax.jit(lambda x: M.box_mxu(
-        x, radius, interpret=True))(img))
-    np.testing.assert_array_equal(got, oracle.box_blur(img, radius))
-
-
-def test_box_mxu_bit_exact_rows_and_batch(rng):
-    from gpu_image_processing_tpu.ops.pallas import blur_mxu as M
-
-    for h in (17, 24, 25):  # partial trailing band / exact-fit geometries
-        img = make_image(rng, h, 18, 3)
-        rows = img.reshape(h, 54)
-        got = np.asarray(jax.jit(lambda x: M.box_mxu_rows(
-            x, 5, 3, interpret=True))(rows))
-        np.testing.assert_array_equal(
-            got, oracle.box_blur(img, 5).reshape(h, 54), err_msg=f"h={h}")
-    imgs = [make_image(rng, 21, 18, 3) for _ in range(3)]
-    batch = np.stack([im.reshape(21, 54) for im in imgs])
-    got = np.asarray(jax.jit(lambda x: M.box_mxu_rows_batch(
-        x, 4, 3, interpret=True))(batch))
-    for b in range(3):
-        np.testing.assert_array_equal(
-            got[b], oracle.box_blur(imgs[b], 4).reshape(21, 54),
-            err_msg=f"b={b}")
-
-
-def test_box_mxu_grayscale_rows(rng):
-    from gpu_image_processing_tpu.ops.pallas import blur_mxu as M
-
-    img = make_image(rng, 23, 40, 1)
-    rows = img.reshape(23, 40)
-    got = np.asarray(jax.jit(lambda x: M.box_mxu_rows(
-        x, 6, 1, interpret=True))(rows))
-    np.testing.assert_array_equal(
-        got, oracle.box_blur(img, 6).reshape(23, 40))
-
-
-@pytest.mark.parametrize("w,radius", [(2048, 200), (4000, 520)])
-def test_box_mxu_column_chunked_exact(rng, w, radius):
-    """Column-chunked MXU box geometry (serving-reachable: e.g. w=4000
-    r=120 is use_mxu_box-routed AND chunks 8 ways).  (2048, 200): halo
-    (600 lanes) within one chunk; (4000, 520): halo (1560) spans chunks,
-    so multiple chunks carry clamp-to-edge fills.  Bit-exact like every
-    box tier."""
-    from gpu_image_processing_tpu.ops.pallas import blur_mxu as M
-    from gpu_image_processing_tpu.ops.pallas.blur import (
-        _landed_geometry,
-        blur_kernel_fits_vmem,
-    )
-
-    c = 3
-    assert not blur_kernel_fits_vmem(w, radius, c, False, interleaved=True)
-    _, cs, n_cols, _, _ = _landed_geometry(w * c, radius * c, chunked=True)
-    assert n_cols > 1
-    img = make_image(rng, 16, w, c)
-    rows = img.reshape(16, w * c)
-    got = np.asarray(jax.jit(lambda x: M.box_mxu_rows(
-        x, radius, c, interpret=True))(rows))
-    np.testing.assert_array_equal(
-        got, oracle.box_blur(img, radius).reshape(16, w * c))
-
-
-def test_box_mxu_routing():
-    """Box routes to the MXU tier for BOTH level 2 and 4 (bit-exact on
-    every tier, so routing only changes speed) from BOX_MXU_MIN_RADIUS
-    up; r=1 stays on the exact VPU kernel (unmeasured on silicon)."""
-    from gpu_image_processing_tpu.ops.pallas.blur_mxu import (
-        BOX_MXU_MIN_RADIUS,
-    )
-    from gpu_image_processing_tpu.runtime.dispatch import _rows_optimized
-
-    def names(fn):
-        return fn.__code__.co_names + tuple(
-            c.cell_contents.__name__ for c in (fn.__closure__ or ())
-            if callable(getattr(c, "cell_contents", None))
-            and hasattr(c.cell_contents, "__name__"))
-
-    for lvl in (2, 4):
-        hot = _rows_optimized("box", lvl, BOX_MXU_MIN_RADIUS, 64, 96, 3)
-        assert "box_mxu_rows" in names(hot), f"level {lvl}"
-        cold = _rows_optimized("box", lvl, BOX_MXU_MIN_RADIUS - 1, 64, 96, 3)
-        assert "box_mxu_rows" not in names(cold), f"level {lvl}"
-
-
-@pytest.mark.parametrize("g_block", [128, 256])
-def test_mxu_gblock_gate(rng, g_block):
-    """Non-default horizontal matmul block sizes hold the ADVANCED-tier
-    maxdiff<=1 gate (the default _G is covered by the MXU tests above)."""
-    from gpu_image_processing_tpu.ops.pallas import blur_mxu as M
-
-    img = make_image(rng, 40, 50, 3)
-    rows = img.reshape(40, 150)
-    w = gaussian_kernel_f32(5, 2.5)
-    got = np.asarray(jax.jit(lambda x, ww: M._gaussian_mxu(
-        x[None], ww, 5, tap_stride=3, interpret=True,
-        g_block=g_block)[0])(rows, w))
-    want = oracle.gaussian_blur(img, w, 5).reshape(40, 150)
-    assert np.abs(got.astype(int) - want.astype(int)).max() <= 1
-
-
-# ---------------------------------------------------------------------------
-# Host-side pre-pad mode (VERDICT r4 item 1): the device program receives
-# the FULLY padded buffer (host_prepad_planar / host_prepad_rows built on
-# the host next to the untimed H2D) and emits NO pad op.  Bit-equality
-# with the in-program-pad path is the whole contract.
-# ---------------------------------------------------------------------------
-
-
-@pytest.mark.parametrize("shape", SHAPES)
-def test_gaussian_host_prepad_planar_bit_equal(rng, shape):
-    from gpu_image_processing_tpu.ops.pallas.blur import (
-        _separable_blur_planar, host_prepad_planar)
-
-    img = make_image(rng, *shape)
-    w = gaussian_kernel_f32(3, 2.0)
-    ref = np.asarray(_gauss(jax.numpy.asarray(img), jax.numpy.asarray(w), 3))
-    planar = np.ascontiguousarray(img.transpose(2, 0, 1))
-    xp = host_prepad_planar(planar, 3, box_mode=False)
-    out = _separable_blur_planar(
-        jax.numpy.asarray(xp), jax.numpy.asarray(w), 3, box_mode=False,
-        interpret=True, host_prepadded=(shape[0], shape[1]))
-    np.testing.assert_array_equal(
-        np.transpose(np.asarray(out), (1, 2, 0)), ref)
-
-
-@pytest.mark.parametrize("radius,box", [(3, False), (5, True), (8, True)])
-def test_host_prepad_rows_bit_equal(rng, radius, box):
-    from gpu_image_processing_tpu.ops.pallas.blur import (
-        box_pallas_rows, gaussian_pallas_rows, host_prepad_rows)
-
-    h, w_, c = 37, 53, 3
-    img = make_image(rng, h, w_, c)
-    rows = img.reshape(h, w_ * c)
-    xr = host_prepad_rows(rows, radius, c, box_mode=box)
-    if box:
-        ref = box_pallas_rows(jax.numpy.asarray(rows), radius, c,
-                              interpret=True)
-        out = box_pallas_rows(jax.numpy.asarray(xr), radius, c,
-                              interpret=True,
-                              host_prepadded=(h, w_ * c))
-    else:
-        wts = jax.numpy.asarray(gaussian_kernel_f32(radius, 2.0))
-        ref = gaussian_pallas_rows(jax.numpy.asarray(rows), wts, radius, c,
-                                   interpret=True)
-        out = gaussian_pallas_rows(jax.numpy.asarray(xr), wts, radius, c,
-                                   interpret=True,
-                                   host_prepadded=(h, w_ * c))
-    np.testing.assert_array_equal(np.asarray(out), np.asarray(ref))
-
-
-def test_host_prepad_shape_validation(rng):
-    from gpu_image_processing_tpu.ops.pallas.blur import (
-        gaussian_pallas_rows, host_prepad_rows)
-
-    img = make_image(rng, 20, 24, 3)
-    rows = img.reshape(20, 72)
-    xr = host_prepad_rows(rows, 3, 3, box_mode=False)
-    wts = jax.numpy.asarray(gaussian_kernel_f32(3, 2.0))
-    with pytest.raises(ValueError, match="host_prepadded buffer"):
-        gaussian_pallas_rows(jax.numpy.asarray(xr[:, :-1]), wts, 3, 3,
-                             interpret=True, host_prepadded=(20, 72))
-
-
-@pytest.mark.parametrize("level", [1, 2])
-def test_sobel_host_prepad_rows_bit_equal(rng, level):
-    from gpu_image_processing_tpu.ops.pallas.sobel import (
-        host_prepad_rows as sobel_prepad_rows, sobel_pallas_rows)
-
-    h, w_, c = 41, 47, 3
-    img = make_image(rng, h, w_, c)
-    rows = img.reshape(h, w_ * c)
-    ref = sobel_pallas_rows(jax.numpy.asarray(rows), w_, c, level=level,
-                            interpret=True)
-    xr = sobel_prepad_rows(rows)
-    out = sobel_pallas_rows(jax.numpy.asarray(xr), w_, c, level=level,
-                            interpret=True, host_prepadded=(h, w_ * c))
-    np.testing.assert_array_equal(np.asarray(out), np.asarray(ref))
-
-
-@pytest.mark.parametrize("level", [1, 2])
-def test_sobel_mxu_host_prepad_rows_bit_equal(rng, level):
-    from gpu_image_processing_tpu.ops.pallas.sobel_mxu import (
-        host_prepad_rows_mxu, sobel_mxu_rows)
-
-    h, w_, c = 33, 40, 3
-    img = make_image(rng, h, w_, c)
-    rows = img.reshape(h, w_ * c)
-    ref = sobel_mxu_rows(jax.numpy.asarray(rows), w_, c, interpret=True,
-                         level=level)
-    xr = host_prepad_rows_mxu(rows, w_, c)
-    out = sobel_mxu_rows(jax.numpy.asarray(xr), w_, c, interpret=True,
-                         level=level, host_prepadded=(h, w_ * c))
-    np.testing.assert_array_equal(np.asarray(out), np.asarray(ref))
-
-
-@pytest.mark.parametrize("level", [1, 2])
-def test_sobel_host_prepad_planar_bit_equal(rng, level):
-    from gpu_image_processing_tpu.ops.pallas.sobel import (
-        host_prepad_planar as sobel_prepad_planar, sobel_pallas)
-
-    h, w_, c = 29, 37, 3
-    img = make_image(rng, h, w_, c)
-    ref = sobel_pallas(jax.numpy.asarray(img), level=level, interpret=True)
-    xp = sobel_prepad_planar(img)
-    out = sobel_pallas(jax.numpy.asarray(xp), level=level, interpret=True,
-                       host_prepadded=(h, w_, c))
-    np.testing.assert_array_equal(np.asarray(out), np.asarray(ref))
-
-
-@pytest.mark.parametrize("box", [False, True])
-def test_mxu_host_prepad_rows_bit_equal(rng, box):
-    from gpu_image_processing_tpu.ops.pallas.blur_mxu import (
-        box_mxu_rows, gaussian_mxu_rows, host_prepad_mxu)
-
-    h, w_, c, r = 35, 49, 3, 5
-    img = make_image(rng, h, w_, c)
-    rows = img.reshape(h, w_ * c)
-    xr = host_prepad_mxu(rows, r, c)
-    if box:
-        ref = box_mxu_rows(jax.numpy.asarray(rows), r, c, interpret=True)
-        out = box_mxu_rows(jax.numpy.asarray(xr), r, c, interpret=True,
-                           host_prepadded=(h, w_ * c))
-    else:
-        wts = jax.numpy.asarray(gaussian_kernel_f32(r, 2.0))
-        ref = gaussian_mxu_rows(jax.numpy.asarray(rows), wts, r, c,
-                                interpret=True)
-        out = gaussian_mxu_rows(jax.numpy.asarray(xr), wts, r, c,
-                                interpret=True, host_prepadded=(h, w_ * c))
-    np.testing.assert_array_equal(np.asarray(out), np.asarray(ref))
+@pytest.mark.parametrize("batch,height,data_width,halo", [
+    (1, 2146, 9717, 3), (1, 1023, 4096, 15), (8, 1023, 3072, 5),
+    (1, 64, 64, 1)])
+def test_geometry_fills_the_card(batch, height, data_width, halo):
+    """Strips are powers of two, bands shrink until there is at least one
+    program per SM (or the band is 8 rows), and warps follow strip width."""
+    g = blur.geometry(batch, height, data_width, halo)
+    lanes, rows = g["block_lanes"], g["block_rows"]
+    assert lanes & (lanes - 1) == 0 and rows & (rows - 1) == 0
+    programs = batch * -(-data_width // lanes) * -(-height // rows)
+    assert programs >= 132 or rows == 8
+    assert g["num_warps"] == min(8, max(1, lanes // 32))

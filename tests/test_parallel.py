@@ -9,10 +9,10 @@ import jax
 import numpy as np
 import pytest
 
-from gpu_image_processing_tpu.ops.weights import gaussian_kernel_f32
-from gpu_image_processing_tpu.parallel.batch import make_batch_filter
-from gpu_image_processing_tpu.parallel.mesh import make_mesh
-from gpu_image_processing_tpu.parallel.spatial import make_sharded_filter
+from gpu_image_processing.ops.weights import gaussian_kernel_f32
+from gpu_image_processing.parallel.batch import make_batch_filter
+from gpu_image_processing.parallel.mesh import make_mesh
+from gpu_image_processing.parallel.spatial import make_sharded_filter
 
 from . import oracle_numpy as oracle
 from .conftest import make_image
@@ -90,7 +90,7 @@ def test_spatial_uneven_batch_and_height(rng):
 
     B=6 is not a multiple of dp=4; H=100 is not a multiple of sp=2? it is --
     so use H=101 to force a height pad too.  Must stay bit-exact."""
-    from gpu_image_processing_tpu.parallel.mesh import make_mesh
+    from gpu_image_processing.parallel.mesh import make_mesh
 
     mesh = make_mesh(8, dp=4, sp=2)
     imgs = _batch(rng, 6, 101, 23, 3)

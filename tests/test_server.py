@@ -12,8 +12,8 @@ import numpy as np
 import pytest
 from PIL import Image
 
-from gpu_image_processing_tpu.server.app import create_app
-from gpu_image_processing_tpu.server.http import AppServer, Request
+from gpu_image_processing.server.app import create_app
+from gpu_image_processing.server.http import AppServer, Request
 
 
 @pytest.fixture(scope="module")
@@ -128,7 +128,7 @@ def test_process_all(app):
 
 def test_process_all_profiling_source_tag(app):
     """/api/process-all kernel rows must carry their provenance tag
-    (xplane_trace on TPU; estimate/device-timing fallbacks elsewhere), and
+    (xplane_trace on a GPU; estimate/device-timing fallbacks elsewhere), and
     the profiled time must never override the device-event time_ms."""
     img = _small_image()
     status, body = _post(app, "/api/process-all", {
@@ -324,7 +324,7 @@ def test_live_oversize_body_413_before_read(live_server, monkeypatch):
             body += chunk
     head = resp.split(b"\r\n", 1)[0]
     assert b"413" in head, resp[:200]
-    assert b"GIP_TPU_MAX_BODY_MB" in head_blob + body
+    assert b"GIP_MAX_BODY_MB" in head_blob + body
 
 
 def test_live_chunked_body_411_and_close(live_server):
@@ -468,22 +468,22 @@ def test_live_body_cap_env_and_normal_requests_unaffected(live_server):
     """Requests under the cap flow through untouched (the 20x16 PNG
     payloads above already prove this live); here: a Content-Length just
     UNDER the configured cap is not rejected by the gate."""
-    from gpu_image_processing_tpu.server import http as http_mod
+    from gpu_image_processing.server import http as http_mod
 
     assert http_mod._max_body_bytes() == 64 * 1024 * 1024
     # 0 disables the gate entirely.
     import os
-    old = os.environ.get("GIP_TPU_MAX_BODY_MB")
+    old = os.environ.get("GIP_MAX_BODY_MB")
     try:
-        os.environ["GIP_TPU_MAX_BODY_MB"] = "0"
+        os.environ["GIP_MAX_BODY_MB"] = "0"
         assert http_mod._max_body_bytes() == 0
-        os.environ["GIP_TPU_MAX_BODY_MB"] = "not-a-number"
+        os.environ["GIP_MAX_BODY_MB"] = "not-a-number"
         assert http_mod._max_body_bytes() == 64 * 1024 * 1024
     finally:
         if old is None:
-            os.environ.pop("GIP_TPU_MAX_BODY_MB", None)
+            os.environ.pop("GIP_MAX_BODY_MB", None)
         else:
-            os.environ["GIP_TPU_MAX_BODY_MB"] = old
+            os.environ["GIP_MAX_BODY_MB"] = old
 
 
 def test_live_cors_preflight(live_server):
@@ -501,23 +501,23 @@ def test_stats_endpoint(app):
     assert "GET /api/health" in body["requests_by_route"]
     assert body["uptime_s"] >= 0
     # Worker-recycle observability (server/app.py watchdog): live RSS is
-    # always reported; the threshold and generation are null off-relay /
-    # unsupervised.
+    # always reported; the threshold and generation are null unless the
+    # watchdog is armed / the worker is supervised.
     assert body["rss_mb"] > 10.0
     assert body["max_rss_mb"] is None or body["max_rss_mb"] > 0
     assert body["worker_generation"] is None or body["worker_generation"] >= 1
     assert set(body["decode_tiers"]) == {
         "native_png", "native_jpeg", "native_gif", "native_bmp",
         "native_psd", "native_hdr", "native_pic", "native_pnm",
-        "native_tga", "pil", "failed"}
+        "native_tga", "stdlib_png", "pil", "failed"}
 
 
 def test_stats_decode_tiers_count_serving_decodes(app, small_rgb):
     """Decoder-tier observability (VERDICT r2 item 6): /api/stats shows
     which decoder served each upload, so a native-tier coverage
     regression is visible instead of silently riding the PIL fallback."""
-    from gpu_image_processing_tpu.utils import image as image_util
-    from gpu_image_processing_tpu.utils import native_codec
+    from gpu_image_processing.utils import image as image_util
+    from gpu_image_processing.utils import native_codec
 
     image_util.reset_decode_tier_counts()
     # A plain RGB PNG decodes in the native tier.
@@ -544,9 +544,9 @@ def test_stats_decode_tiers_count_serving_decodes(app, small_rgb):
 def test_degraded_mode_503(monkeypatch):
     # Accelerator-unavailable degradation (app.py:21-27,131-137,190-194):
     # health reports it, process endpoints 503, server still serves.
-    from gpu_image_processing_tpu.server import app as app_mod
+    from gpu_image_processing.server import app as app_mod
 
-    monkeypatch.setattr(app_mod, "TPU_AVAILABLE", False)
+    monkeypatch.setattr(app_mod, "RUNTIME_AVAILABLE", False)
     degraded = app_mod.create_app()
     status, body = degraded.dispatch(Request(method="GET", path="/api/health"))
     assert status == 200 and body["gpu_available"] is False
@@ -619,14 +619,14 @@ def test_process_all_exif_jpeg_no_passthrough(app):
 
 
 def test_parse_precompile_shapes():
-    from gpu_image_processing_tpu.server.app import _parse_precompile
+    from gpu_image_processing.server.app import _parse_precompile
 
     assert _parse_precompile("800x600, 1024X1024") == [(800, 600), (1024, 1024)]
     # malformed / out-of-range entries skipped, never raise
     assert _parse_precompile("junk,12x,x9,0x5,99999x5,") == []
     assert _parse_precompile("") == []
-    # boolean-ish values mean "warm the defaults" (GIP_TPU_PRECOMPILE=1)
-    from gpu_image_processing_tpu.server.app import DEFAULT_PRECOMPILE_SHAPES
+    # boolean-ish values mean "warm the defaults" (GIP_PRECOMPILE=1)
+    from gpu_image_processing.server.app import DEFAULT_PRECOMPILE_SHAPES
 
     assert _parse_precompile("1") == DEFAULT_PRECOMPILE_SHAPES
     assert _parse_precompile("true") == DEFAULT_PRECOMPILE_SHAPES
@@ -636,8 +636,8 @@ def test_parse_precompile_shapes():
 def test_precompile_warms_executable_cache(monkeypatch):
     # Fresh runtime: the process-global RUNTIME is shared with every other
     # test in the suite, so "cache grew" would depend on test order.
-    import gpu_image_processing_tpu.runtime.dispatch as dispatch_mod
-    from gpu_image_processing_tpu.server.app import precompile_shapes
+    import gpu_image_processing.runtime.dispatch as dispatch_mod
+    from gpu_image_processing.server.app import precompile_shapes
 
     rt = dispatch_mod.FilterRuntime()
     monkeypatch.setattr(dispatch_mod, "RUNTIME", rt)
@@ -666,7 +666,7 @@ def test_multipart_preserves_crlf_tailed_binary(app):
             b'filename="t.ppm"\r\n'
             b"Content-Type: image/x-portable-pixmap\r\n\r\n" + raw + b"\r\n"
             b"--" + boundary + b"--\r\n")
-    from gpu_image_processing_tpu.server.http import parse_multipart
+    from gpu_image_processing.server.http import parse_multipart
 
     files = parse_multipart(
         body, "multipart/form-data; boundary=" + boundary.decode())

@@ -1,4 +1,4 @@
-"""Row-sharded single-image serving (GIP_TPU_MESH_SPATIAL=1, VERDICT r2
+"""Row-sharded single-image serving (GIP_MESH_SPATIAL=1, VERDICT r2
 item 5): the serving endpoints route large images through the
 parallel/spatial.py ppermute-halo path over all attached devices, and the
 outputs stay BIT-IDENTICAL to single-chip serving.
@@ -8,15 +8,15 @@ Runs on the 8-virtual-CPU-device mesh from conftest.py."""
 import numpy as np
 import pytest
 
-from gpu_image_processing_tpu.runtime.dispatch import RUNTIME
+from gpu_image_processing.runtime.dispatch import RUNTIME
 
 
 @pytest.fixture
 def spatial_env(monkeypatch):
-    monkeypatch.setenv("GIP_TPU_MESH_SPATIAL", "1")
+    monkeypatch.setenv("GIP_MESH_SPATIAL", "1")
     # Keep test images small: 8 rows per shard is enough to exercise the
     # halo exchange without conftest-scale slowdowns.
-    monkeypatch.setenv("GIP_TPU_MESH_SPATIAL_MIN_ROWS_PER_SHARD", "8")
+    monkeypatch.setenv("GIP_MESH_SPATIAL_MIN_ROWS_PER_SHARD", "8")
 
 
 def _single_chip(filter_name, img, **kw):
@@ -32,9 +32,9 @@ def _spatial_keys():
 def test_gaussian_spatial_bit_equal(spatial_env, monkeypatch, level):
     rng = np.random.default_rng(11)
     img = rng.integers(0, 256, (100, 97, 3), np.uint8)  # H uneven vs sp=8
-    monkeypatch.delenv("GIP_TPU_MESH_SPATIAL", raising=False)
+    monkeypatch.delenv("GIP_MESH_SPATIAL", raising=False)
     want = _single_chip("gaussian", img, sigma=2.0, radius=3, level=level)
-    monkeypatch.setenv("GIP_TPU_MESH_SPATIAL", "1")
+    monkeypatch.setenv("GIP_MESH_SPATIAL", "1")
     # Drop any spatial executables earlier tests (or the other level
     # parametrization -- gaussian's spatial key is level-independent) left
     # behind, so "a spatial gaussian key exists afterwards" can only be
@@ -50,9 +50,9 @@ def test_gaussian_spatial_bit_equal(spatial_env, monkeypatch, level):
 def test_box_spatial_bit_equal(spatial_env, monkeypatch):
     rng = np.random.default_rng(12)
     img = rng.integers(0, 256, (96, 64, 4), np.uint8)   # H divisible, RGBA
-    monkeypatch.delenv("GIP_TPU_MESH_SPATIAL", raising=False)
+    monkeypatch.delenv("GIP_MESH_SPATIAL", raising=False)
     want = _single_chip("box", img, radius=5, level=2)
-    monkeypatch.setenv("GIP_TPU_MESH_SPATIAL", "1")
+    monkeypatch.setenv("GIP_MESH_SPATIAL", "1")
     got = _single_chip("box", img, radius=5, level=2)
     np.testing.assert_array_equal(got, want)
 
@@ -61,9 +61,9 @@ def test_box_spatial_bit_equal(spatial_env, monkeypatch):
 def test_sobel_spatial_bit_equal(spatial_env, monkeypatch, level):
     rng = np.random.default_rng(13)
     img = rng.integers(0, 256, (101, 80, 3), np.uint8)  # padded bottom row
-    monkeypatch.delenv("GIP_TPU_MESH_SPATIAL", raising=False)
+    monkeypatch.delenv("GIP_MESH_SPATIAL", raising=False)
     want = _single_chip("sobel", img, level=level)
-    monkeypatch.setenv("GIP_TPU_MESH_SPATIAL", "1")
+    monkeypatch.setenv("GIP_MESH_SPATIAL", "1")
     got = _single_chip("sobel", img, level=level)
     np.testing.assert_array_equal(got, want)
     assert (got[-1] == 0).all() and (got[0] == 0).all()
@@ -74,7 +74,7 @@ def test_small_images_stay_single_chip(spatial_env, monkeypatch):
     spatial overhead would dominate); no spatial executable is built.
     At the default 64-rows-per-shard floor a bucketed 64-row image is far
     below the 8-device minimum of 512 rows."""
-    monkeypatch.delenv("GIP_TPU_MESH_SPATIAL_MIN_ROWS_PER_SHARD")
+    monkeypatch.delenv("GIP_MESH_SPATIAL_MIN_ROWS_PER_SHARD")
     rng = np.random.default_rng(14)
     img = rng.integers(0, 256, (32, 40, 3), np.uint8)
     before = _spatial_keys()
@@ -85,52 +85,18 @@ def test_small_images_stay_single_chip(spatial_env, monkeypatch):
 def test_grayscale_spatial(spatial_env, monkeypatch):
     rng = np.random.default_rng(15)
     img = rng.integers(0, 256, (88, 50, 1), np.uint8)
-    monkeypatch.delenv("GIP_TPU_MESH_SPATIAL", raising=False)
+    monkeypatch.delenv("GIP_MESH_SPATIAL", raising=False)
     want = _single_chip("gaussian", img, sigma=1.0, radius=2, level=2)
-    monkeypatch.setenv("GIP_TPU_MESH_SPATIAL", "1")
+    monkeypatch.setenv("GIP_MESH_SPATIAL", "1")
     got = _single_chip("gaussian", img, sigma=1.0, radius=2, level=2)
     np.testing.assert_array_equal(got, want)
-
-
-def test_disable_pallas_reaches_spatial_bodies(spatial_env, monkeypatch):
-    """GIP_TPU_DISABLE_PALLAS must route the spatial bodies onto their
-    pure-jnp branches (it used to sit in the cache key only, silently
-    ignored by the built executable).  The Pallas entry point is patched
-    to a raiser: if the sharded build still imports-and-calls it, this
-    test fails at trace time; the output must also stay bit-identical."""
-    import gpu_image_processing_tpu.ops.pallas.blur as pb
-    import gpu_image_processing_tpu.ops.pallas.sobel as ps
-
-    rng = np.random.default_rng(16)
-    img = rng.integers(0, 256, (96, 60, 3), np.uint8)
-    cases = (("box", dict(radius=3, level=2)),
-             ("gaussian", dict(sigma=1.5, radius=2, level=2)),
-             ("sobel", dict(level=2)))
-    monkeypatch.delenv("GIP_TPU_MESH_SPATIAL", raising=False)
-    want = {f: _single_chip(f, img, **kw) for f, kw in cases}
-
-    monkeypatch.setenv("GIP_TPU_MESH_SPATIAL", "1")
-    monkeypatch.setenv("GIP_TPU_DISABLE_PALLAS", "1")
-
-    def boom(*a, **kw):
-        raise AssertionError("Pallas kernel called with GIP_TPU_DISABLE_PALLAS=1")
-
-    monkeypatch.setattr(pb, "_separable_blur_planar", boom)
-    monkeypatch.setattr(ps, "sobel_pallas_batch", boom)
-    for k in _spatial_keys():
-        RUNTIME._cache.pop(k, None)
-    for f, kw in cases:
-        got = _single_chip(f, img, **kw)
-        np.testing.assert_array_equal(got, want[f])
-    assert {k[1] for k in _spatial_keys()} == {"box", "gaussian", "sobel"}, \
-        "spatial path not taken for every filter"
 
 
 def test_profile_filter_spatial(spatial_env):
     """Deep profiling on a spatial-serving deployment times the ROW-SHARDED
     executable the runtime actually serves, with provenance in config
     (VERDICT r3 item 6: the single-chip cache key used to find nothing)."""
-    from gpu_image_processing_tpu.profiling.profiler import (
+    from gpu_image_processing.profiling.profiler import (
         get_common_metrics,
         profile_filter,
     )
@@ -141,7 +107,7 @@ def test_profile_filter_spatial(spatial_env):
     assert deep["config"]["Serving Path"] == "spatial"
     assert deep["total_kernel_duration_ms"] > 0
     # Per-kernel rows survive (pass-ratio estimate on the CPU mesh; the
-    # xplane tier takes over on real TPU planes).
+    # xplane tier takes over on a GPU trace).
     pp = deep["per_pass_durations_ms"]
     assert pp["horizontal"] > 0 and pp["vertical"] > 0
     common = get_common_metrics(deep, ncu_data=deep)
@@ -154,9 +120,9 @@ def test_profile_filter_spatial(spatial_env):
 def test_profile_filter_single_chip_provenance(spatial_env, monkeypatch):
     """Without the spatial route (small image) the provenance says
     single_chip -- readers can tell which program the numbers describe."""
-    from gpu_image_processing_tpu.profiling.profiler import profile_filter
+    from gpu_image_processing.profiling.profiler import profile_filter
 
-    monkeypatch.setenv("GIP_TPU_MESH_SPATIAL_MIN_ROWS_PER_SHARD", "4096")
+    monkeypatch.setenv("GIP_MESH_SPATIAL_MIN_ROWS_PER_SHARD", "4096")
     rng = np.random.default_rng(22)
     img = rng.integers(0, 256, (24, 30, 3), np.uint8)
     deep = profile_filter(img, "sobel", 2)

@@ -10,8 +10,8 @@ parser against a hand-serialized XSpace, (b) a live capture round-trip,
 import numpy as np
 import pytest
 
-from gpu_image_processing_tpu.profiling import xplane
-from gpu_image_processing_tpu.profiling.profiler import (
+from gpu_image_processing.profiling import xplane
+from gpu_image_processing.profiling.profiler import (
     get_common_metrics,
     profile_filter,
 )
@@ -113,12 +113,12 @@ def _xspace(planes: list[bytes]) -> bytes:
     return b"".join(_field(1, 2, p) for p in planes)
 
 
-def _synthetic_tpu_space() -> bytes:
-    """A /device:TPU:0 plane with an 'XLA Ops' line: the fused pallas
+def _synthetic_device_space() -> bytes:
+    """A /device:GPU:0 plane with an 'XLA Ops' line: the fused pallas
     kernel twice (0.5 ms + 0.7 ms) and a pad fusion once (0.1 ms); plus a
     host plane that must be ignored."""
     dev = _plane(
-        "/device:TPU:0",
+        "/device:GPU:0",
         [
             _line(
                 "XLA Ops",
@@ -145,8 +145,8 @@ def _synthetic_tpu_space() -> bytes:
 
 
 def test_parse_synthetic_xspace():
-    planes = xplane.parse_xspace_bytes(_synthetic_tpu_space())
-    assert [p.name for p in planes] == ["/device:TPU:0", "/host:CPU"]
+    planes = xplane.parse_xspace_bytes(_synthetic_device_space())
+    assert [p.name for p in planes] == ["/device:GPU:0", "/host:CPU"]
     dev = planes[0]
     assert xplane.is_device_plane(dev)
     assert not xplane.is_device_plane(planes[1])
@@ -170,7 +170,7 @@ def test_xstat_payloads_harvested():
     ref-interned stats land in attrs (VERDICT r2 item 3; ncu's per-kernel
     counter table, ncu_profiler.py:406-723)."""
     dev = _plane(
-        "/device:TPU:0",
+        "/device:GPU:0",
         [
             _line(
                 "XLA Ops",
@@ -211,14 +211,14 @@ def test_xstat_payloads_harvested():
 
 
 def test_metadata_level_stats_harvested():
-    """XEventMetadata.stats (field 5) is where XLA:TPU attaches the per-op
-    INVARIANT cost counters (flops, bytes_accessed -- measured on the v5e
-    2026-08-19: the events themselves carry only timing stats, so a
-    decoder reading only XEvent.stats harvests no cost data at all).
+    """XEventMetadata.stats (field 5) is where XLA attaches the per-op
+    INVARIANT cost counters (flops, bytes_accessed -- on such planes the
+    events themselves carry only timing stats, so a decoder reading only
+    XEvent.stats harvests no cost data at all).
     Metadata stats accumulate once per occurrence, exactly like event
     stats, and combine with them."""
     dev = _plane(
-        "/device:TPU:0",
+        "/device:GPU:0",
         [
             _line(
                 "XLA Ops",
@@ -259,7 +259,7 @@ def test_metadata_level_stats_harvested():
 def test_events_without_stats_unchanged():
     """Events carrying no stats aggregate exactly as before (no 'stats'
     key invented)."""
-    planes = xplane.parse_xspace_bytes(_synthetic_tpu_space())
+    planes = xplane.parse_xspace_bytes(_synthetic_device_space())
     agg = xplane.kernel_durations_from_planes(planes)
     assert "stats" not in agg["gaussian_rows_kernel"]
     assert "attrs" not in agg["gaussian_rows_kernel"]
@@ -269,7 +269,7 @@ def test_noise_ops_filtered(tmp_path):
     space = _xspace(
         [
             _plane(
-                "/device:TPU:0",
+                "/device:GPU:0",
                 [
                     _line(
                         "XLA Ops",
@@ -314,7 +314,7 @@ def test_live_capture_roundtrip(tmp_path, rng):
 def test_trace_tier_tags_and_rows(rng, monkeypatch):
     """When the trace tier yields device kernels, profile_filter reports
     THOSE as kernel rows, tagged source=xplane_trace (VERDICT r2 item 2)."""
-    from gpu_image_processing_tpu.profiling import profiler as prof
+    from gpu_image_processing.profiling import profiler as prof
 
     fake = {
         "gaussian_rows_kernel": {"count": 4, "total_ms": 2.0, "avg_ms": 0.5},
@@ -340,7 +340,7 @@ def test_trace_tier_tags_and_rows(rng, monkeypatch):
 def test_trace_op_stats_surface_in_categorized_dict(rng, monkeypatch):
     """Harvested per-op stats reach the categorized dict: per-exec flops
     and bytes totals plus per-op measured bandwidth rows (VERDICT r2 #3)."""
-    from gpu_image_processing_tpu.profiling import profiler as prof
+    from gpu_image_processing.profiling import profiler as prof
 
     fake = {
         "gaussian_rows_kernel": {
@@ -386,12 +386,12 @@ def test_estimate_tier_tagged_on_cpu(rng):
 
 
 def test_hlo_instruction_names_shorten_in_ui_keys(rng, monkeypatch):
-    """Real TPU planes name events with the FULL HLO instruction text;
+    """Some device planes name events with the FULL HLO instruction text;
     UI-facing keys (Duration/Bandwidth rows) use the short op name, while
     programmatic dicts (kernel_durations_ms, trace_kernel_stats) keep the
     full text.  Display-style names and short-name collisions fall back
     to the full name."""
-    from gpu_image_processing_tpu.profiling import profiler as prof
+    from gpu_image_processing.profiling import profiler as prof
 
     long1 = "%_lambda_.1 = u8[1,64,640] custom-call(u8[1,66,768] %pad.0)"
     long2 = "%pad.0 = u8[1,66,768] pad(u8[1,64,640] %bitcast.1)"
@@ -413,3 +413,26 @@ def test_hlo_instruction_names_shorten_in_ui_keys(rng, monkeypatch):
     # programmatic keys keep the full HLO text
     assert long1 in deep["kernel_durations_ms"]
     assert long1 in deep["trace_kernel_stats"]
+
+
+def test_overlap_annotated_from_intervals():
+    """Synthetic plane: pad_fusion [0, 0.1 ms] runs inside the kernel's
+    first occurrence [0, 0.5 ms]; the kernel's second occurrence
+    [0.6, 1.3 ms] is alone.  Both ops get 0.1 ms of cross-op overlap."""
+    planes = xplane.parse_xspace_bytes(_synthetic_device_space())
+    agg = xplane.kernel_durations_from_planes(planes)
+    kern = agg["gaussian_rows_kernel"]
+    pad = agg["pad_fusion"]
+    assert abs(kern["overlap_ms"] - 0.1) < 1e-9
+    assert abs(pad["overlap_ms"] - 0.1) < 1e-9
+    # Durations unchanged by the annotation.
+    assert abs(kern["total_ms"] - 1.2) < 1e-9
+
+
+def test_self_overlap_not_counted_as_cross_op():
+    """Two occurrences of the SAME op overlapping each other are not
+    cross-op concurrency (grid re-execution inside one window)."""
+    agg = {"a": {"count": 2, "total_ms": 2.0, "avg_ms": 1.0}}
+    xplane._annotate_overlap(
+        agg, {"a": [(0, 1_000_000_000), (500_000_000, 1_500_000_000)]})
+    assert agg["a"]["overlap_ms"] == 0.0
